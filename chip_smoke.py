@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (shenqi_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py                  # on a machine with a card
+    python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
+
+Phases, one line each (with seconds since start), in a hard budget of
+BUDGET_S for the whole run, the kernel build included:
+
+  env     card name and power limit (nvidia-smi), torch, CUDA, nvcc,
+          whether triton imports
+  build   nvcc of csrc/*.cu into C-ABI libraries; ptxas registers,
+          shared memory and spills per kernel instantiation
+  kernel  p2p_blocked against p2p_blocked_reference on the card, at the
+          shapes of a real tier of the 128^3 run (blk 32) and of the
+          per-target fallback (blk 1), with and without the potential
+  parity  the slice at 32^3, mesh 64, 2 steps, once through the kernel
+          and once through the plain version; trajectory limits of
+          tests/test_torch_simulation.py
+  slice   the main path: 128^3 clustered particles, box 50000, mesh 256,
+          stencil engine, Simulation.from_arrays(device="cuda").run(3);
+          kernel launches counted per step, stage times per step
+  profile where the time goes in one full force pass at that size
+          (host-clock stages, then torch.profiler device time by kernel
+          and the device's busy share); outside the counted main path
+
+It ends with a `kernels:` line, the JSON kernel table, the card's name
+and power limit, and the run's result as one JSON object.  It imports
+neither JAX nor the JAX package, and exits non-zero if any phase fails,
+if the budget runs out, if no card is present (without the rehearsal
+flag), or if the port is not beside it.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BUDGET_S = 285.0
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (SXM data sheet)
+H100_BYTES_S = 3.35e12       # HBM3
+T0 = time.perf_counter()
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def elapsed() -> float:
+    return time.perf_counter() - T0
+
+
+def say(phase: str, msg: str):
+    print(f"[{phase} {elapsed():7.2f}s] {msg}", flush=True)
+
+
+def check_budget(where: str):
+    if elapsed() > BUDGET_S:
+        raise SmokeFailure(f"time budget of {BUDGET_S:.0f} s spent at {where}")
+
+
+def _clustered(npart_side, box, seed=181170):
+    """Clustered particle set of bench.py:45-83: Zel'dovich displacements
+    from a CDM-like spectrum boosted to rms ~1.5 cells (first shell
+    crossings), deterministic from the seed."""
+    n = npart_side
+    rng = np.random.RandomState(seed)
+    white = rng.normal(size=(n, n, n)).astype(np.float32)
+    gk = np.fft.rfftn(white) / n ** 1.5
+    kx = np.fft.fftfreq(n, 1.0 / n)[:, None, None]
+    ky = np.fft.fftfreq(n, 1.0 / n)[None, :, None]
+    kz = np.arange(n // 2 + 1)[None, None, :]
+    k2 = kx ** 2 + ky ** 2 + kz ** 2
+    k2[0, 0, 0] = 1.0
+    kmag = np.sqrt(k2) * (2 * np.pi / box)
+    keq = 8 * 2 * np.pi / box
+    pk = kmag / (1.0 + (kmag / keq) ** 3.4)
+    amp = np.sqrt(pk)
+    amp[0, 0, 0] = 0.0
+    cell = box / n
+    kf = 2 * np.pi / box
+    disp = []
+    for kj in (kx, ky, kz):
+        dk = gk * amp * (1j * kj * kf) / (k2 * kf * kf)
+        disp.append(np.fft.irfftn(dk, s=(n, n, n), axes=(0, 1, 2)).real
+                    * n ** 3)
+    disp = np.stack([d.ravel() for d in disp], -1)
+    rms = np.sqrt(np.mean(disp ** 2))
+    disp *= 1.5 * cell / max(rms, 1e-30)
+    grid = (np.arange(n) + 0.5) * cell
+    X, Y, Z = np.meshgrid(grid, grid, grid, indexing="ij")
+    pos = np.stack([X.ravel(), Y.ravel(), Z.ravel()], -1) + disp
+    return pos % box
+
+
+def _run(cmd):
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({type(e).__name__})"
+    return (out.stdout or out.stderr).strip()
+
+
+class Smoke:
+    def __init__(self, rehearsal: bool):
+        import torch
+        self.torch = torch
+        self.rehearsal = rehearsal
+        self.dev = torch.device("cpu" if rehearsal else "cuda")
+        self.card = ""
+        self.kernel_row = {}
+        # sizes: the card runs the real ones; the rehearsal tiny ones
+        self.n_kernel, self.n_slice, self.mesh_slice = (
+            (32, 32, 64) if rehearsal else (128, 128, 256))
+        self.n_parity, self.mesh_parity = (8, 16) if rehearsal else (32, 64)
+
+    # ---------------------------------------------------------------- env
+    def env(self):
+        torch = self.torch
+        self.card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"])
+        print(self.card, flush=True)
+        nvcc = "not found"
+        if shutil.which("nvcc") or not self.rehearsal:
+            try:
+                from shenqi_tpu_torch._build import find_nvcc
+                nvcc = _run([find_nvcc(), "--version"]).splitlines()[-1]
+            except RuntimeError as e:
+                nvcc = str(e)
+        try:
+            import triton  # noqa: F401
+            tri = f"imports ({triton.__version__})"
+        except ImportError:
+            tri = "does not import"
+        say("env", f"card={self.card!r} torch={torch.__version__} "
+            f"cuda={torch.version.cuda} nvcc={nvcc!r} triton {tri} "
+            f"device={self.dev}"
+            + (f" name={torch.cuda.get_device_name(0)}"
+               if not self.rehearsal else ""))
+
+    # -------------------------------------------------------------- build
+    def build(self):
+        if self.rehearsal:
+            say("build", "skipped in the CPU rehearsal (no nvcc here)")
+            return
+        from shenqi_tpu_torch import _build
+        t = time.perf_counter()
+        built = _build.build_all()
+        say("build", f"{len(built)} librar{'y' if len(built) == 1 else 'ies'}"
+            f" in {time.perf_counter() - t:.2f} s "
+            f"(nvcc {', '.join(f'{b.stem}: {b.seconds:.2f} s' for b in built.values())})")
+        for b in built.values():
+            for fn, info in _ptxas_report(b.log):
+                say("build", f"{b.stem} {fn}: {info}")
+
+    # ------------------------------------------------------------- kernel
+    def _make_sim(self, n_side, nmesh, box=50000.0):
+        from shenqi_tpu_torch.cosmology.background import Cosmology
+        from shenqi_tpu_torch.core.timeline import Timeline
+        from shenqi_tpu_torch.simulation import Simulation
+        from shenqi_tpu_torch.utils.units import default_units
+        cp = Cosmology(Omega0=0.3, OmegaLambda=0.7, OmegaBaryon=0.05,
+                       HubbleParam=0.7, CMBTemperature=2.7255, RadiationOn=1)
+        cp.init(0.25, default_units())
+        pos = _clustered(n_side, box)
+        n = len(pos)
+        mass = cp.Omega0 * cp.RhoCrit * box ** 3 / n
+        vel = np.zeros((n, 3), np.float32)
+        ids = np.arange(1, n + 1, dtype=np.uint64)
+        return Simulation.from_arrays(
+            pos, vel, np.full(n, mass, np.float32), ids, cp, box, nmesh,
+            Timeline.setup([0.5], 0.25, 0.5), 0.25, device=self.dev)
+
+    def kernel(self):
+        torch = self.torch
+        from shenqi_tpu_torch.gravity import stencil as st
+        from shenqi_tpu_torch.gravity.treepm import get_window_tables
+        from shenqi_tpu_torch.ops.p2p import (p2p_blocked,
+                                              p2p_blocked_reference,
+                                              p2p_flops_per_pair)
+        t = time.perf_counter()
+        sim = self._make_sim(self.n_kernel, self.mesh_slice)
+        sim.window_tables = get_window_tables(sim.gravity, device=self.dev)
+        self.sim = sim
+        say("kernel", f"{sim.particles.n} clustered particles set up in "
+            f"{time.perf_counter() - t:.2f} s (window degree "
+            f"{sim.window_tables.cf.shape[0] - 1})")
+        # record the pair-kernel inputs of one stencil pass over this
+        # state: the biggest tier batch is the shape the main path runs
+        best = {}
+        real = st.p2p_blocked
+
+        def record(*a, **kw):
+            work = a[2].shape[0] * a[2].shape[1] * kw["blk"]
+            if work > best.get("work", -1):
+                best.update(work=work, args=a, kw=dict(kw))
+            return real(*a, **kw)
+
+        st.p2p_blocked = record
+        try:
+            p = sim.particles
+            st.stencilgrav(p.ipos, torch.where(p.mask, p.mass, 0.0),
+                           sim.gravity.short(), sim.window_tables,
+                           tier_cache={})
+        finally:
+            st.p2p_blocked = real
+        args, kw = best["args"], best["kw"]
+        tgt, src, sm = args[:3]
+        nb, S = sm.shape
+        say("kernel", f"main-path tier: nb={nb} blk={kw['blk']} S={S} "
+            f"sch={kw['sch']}")
+        w = sim.window_tables
+        ncf, ncp = w.cf.shape[0], w.cp.shape[0]
+        # the per-target fallback's shape: blk = 1, each target with its
+        # block's source table
+        nb1 = min(nb, 32)
+        one = (tgt[:nb1].reshape(nb1 * kw["blk"], 1, 3).contiguous(),
+               src[:nb1].repeat_interleave(kw["blk"], 0).contiguous(),
+               sm[:nb1].repeat_interleave(kw["blk"], 0).contiguous())
+        rows = []
+        for blk, ins in ((kw["blk"], (tgt, src, sm)), (1, one)):
+            for want_pot in (False, True):
+                rows.append(self._compare(
+                    p2p_blocked, p2p_blocked_reference, ins, args[3:],
+                    dict(kw, blk=blk, want_pot=want_pot), ncf, ncp,
+                    p2p_flops_per_pair))
+        for r in rows:
+            say("kernel", "p2p_blocked " + " ".join(
+                f"{k}={v}" for k, v in r.items()))
+            if not r["rel_err"] <= 2e-4:
+                raise SmokeFailure(f"p2p_blocked disagrees with its plain "
+                                   f"version: {r}")
+        self.kernel_row = rows[0]
+        del best, args, tgt, src, sm, one
+
+    def _compare(self, kern, plain, ins, rest, kw, ncf, ncp, flops_fn):
+        torch = self.torch
+        a_k, p_k = kern(*ins, *rest, **kw)
+        a_p, p_p = plain(*ins, *rest, **kw)
+        err = float((a_k - a_p).abs().max())
+        rel = err / max(float(a_p.abs().max()), 1e-30)
+        if kw["want_pot"]:
+            rel = max(rel, float((p_k - p_p).abs().max())
+                      / max(float(p_p.abs().max()), 1e-30))
+        tgt, src, sm = ins
+        nb, S = sm.shape
+        blk = kw["blk"]
+        lanes = int((sm != 0).sum())
+        pairs = lanes * blk
+        flops = pairs * flops_fn(ncf, ncp, kw["want_pot"])
+        nbytes = (tgt.numel() + src.numel() + sm.numel() + nb * blk * 3
+                  + (nb * blk if kw["want_pot"] else 0)) * 4
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_S * 1e3
+        ms_k, ms_p = self._time_pair(lambda: kern(*ins, *rest, **kw),
+                                     lambda: plain(*ins, *rest, **kw))
+        return dict(blk=blk, want_pot=kw["want_pot"], nb=nb, S=S,
+                    pair_lanes=pairs, max_abs_err=err, rel_err=rel,
+                    ms=ms_k, plain_ms=ms_p, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    flops_per_pair=flops_fn(ncf, ncp, kw["want_pot"]))
+
+    def _time_pair(self, fk, fp):
+        """Kernel and plain version timed in turns (k, p, k, p) with CUDA
+        events, 5 calls each; the rehearsal times one call with the host
+        clock."""
+        torch = self.torch
+        reps = 1 if self.rehearsal else 5
+        fk(), fp()                                   # warm up
+        ks, ps = [], []
+        for _ in range(2):
+            for f, acc in ((fk, ks), (fp, ps)):
+                if self.rehearsal:
+                    t = time.perf_counter()
+                    for _ in range(reps):
+                        f()
+                    acc.append((time.perf_counter() - t) * 1e3 / reps)
+                    continue
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(reps):
+                    f()
+                e1.record()
+                torch.cuda.synchronize()
+                acc.append(e0.elapsed_time(e1) / reps)
+        return min(ks), min(ps)
+
+    # ------------------------------------------------------------- parity
+    def parity(self):
+        torch = self.torch
+        runs = []
+        for plain in (False, True):
+            sim = self._make_sim(self.n_parity, self.mesh_parity)
+            rng = np.random.RandomState(3)
+            v = rng.normal(0, 20.0, (sim.n_real, 3)).astype(np.float32)
+            vel = sim.particles.vel.clone()
+            vel[:sim.n_real] = torch.from_numpy(v).to(self.dev)
+            sim.particles = sim.particles.replace(vel=vel)
+            sim._plain_p2p = plain
+            t = time.perf_counter()
+            sim.run(max_steps=2)
+            if not self.rehearsal:
+                torch.cuda.synchronize()
+            runs.append((sim, time.perf_counter() - t))
+        (sk, tk), (sp, tp) = runs
+        alive = sk.particles.mask.cpu().numpy()
+        ip1 = sk.particles.ipos_u32()[alive].astype(np.int64)
+        ip2 = sp.particles.ipos_u32()[alive].astype(np.int64)
+        d = np.abs(ip1 - ip2)
+        dpos = float(np.minimum(d, 2 ** 32 - d).max()) / 2 ** 32
+        v1 = sp.particles.vel.cpu().numpy()[alive]
+        v2 = sk.particles.vel.cpu().numpy()[alive]
+        vs = float(np.median(np.abs(v1))) + 1e-6
+        outlier = np.max(np.abs(v1 - v2), axis=1) > 2e-3 * vs + 1e-4
+        tb_ok = np.all((sk.particles.timebin.cpu().numpy()[alive]
+                        == sp.particles.timebin.cpu().numpy()[alive])
+                       | outlier)
+        say("parity", f"{int(alive.sum())} particles mesh "
+            f"{self.mesh_parity} 2 steps: kernel {tk:.2f} s, plain "
+            f"{tp:.2f} s; max |dpos| {dpos:.3e} box (limit 2e-5), "
+            f"velocity outliers {outlier.mean():.2e} (limit 5e-3), "
+            f"timebins equal but outliers: {bool(tb_ok)}")
+        if not (dpos < 2e-5 and outlier.mean() < 5e-3 and tb_ok
+                and sk.times.ti_current == sp.times.ti_current):
+            raise SmokeFailure("kernel path and plain path disagree")
+
+    # -------------------------------------------------------------- slice
+    def _sync(self):
+        if not self.rehearsal:
+            self.torch.cuda.synchronize()
+
+    def slice(self):
+        torch = self.torch
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        sim = self.sim
+        if sim.particles.n != self.n_slice ** 3:
+            sim = self._make_sim(self.n_slice, self.mesh_slice)
+        n = sim.n_real
+        steps = []
+        clock = _StageClock(self._sync)
+
+        def on_step(s):
+            self._sync()
+            clock.measure("kicks")
+            steps.append((time.perf_counter(), p2p_blocked.launches,
+                          clock.take(), s.last_n_targets or n))
+            check_budget(f"slice step {s.step_count}")
+
+        sim.on_step = on_step
+        m = sim.particles.mass.double()[:, None]
+        p0 = (m * sim.particles.vel.double()).sum(0)
+        self._sync()
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        t0 = time.perf_counter()
+        clock.start()
+        sim.walltime = clock
+        sim.run(max_steps=3)
+        launches = p2p_blocked.launches
+        sim.walltime = None
+        prev_t, prev_l = t0, 0
+        per_step = []
+        for i, (t, l, stages, ntgt) in enumerate(steps):
+            per_step.append((t - prev_t, l - prev_l))
+            say("slice", f"step {i}: {t - prev_t:.3f} s, {ntgt} short-range"
+                f" targets, p2p_blocked launches {l - prev_l}; stages "
+                + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in stages.items()))
+            prev_t, prev_l = t, l
+        p = sim.particles
+        rate = (n * (len(per_step) - 1) / sum(s for s, _ in per_step[1:])
+                if len(per_step) > 1 else float("nan"))
+        acc_ok = bool(torch.isfinite(p.grav_accel).all()
+                      and torch.isfinite(p.grav_pm).all())
+        from shenqi_tpu_torch.core.particles import ipos_to_float
+        pos = ipos_to_float(p.ipos, sim.boxsize)
+        pos_ok = bool(torch.isfinite(pos).all()
+                      and torch.isfinite(p.vel).all())
+        mv = m * p.vel.double()
+        dp = float(torch.linalg.norm(mv.sum(0) - p0))
+        smv = float(torch.linalg.norm(mv, dim=1).sum())
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        say("slice", f"{n} particles, mesh {sim.gravity.nmesh}, "
+            f"{len(per_step)} steps to a={sim.atime():.5f}: {rate:.1f} "
+            f"particle-steps/s after the first step (all particles per "
+            f"step, as bench.py counts; individual timesteps update only "
+            f"the active targets); |dP| / sum m|v| = "
+            f"{dp / max(smv, 1e-300):.3e} (limit 1e-3); accelerations "
+            f"finite {acc_ok}, positions finite {pos_ok}; peak device "
+            f"memory {mem:.2f} GiB; p2p_blocked launches {launches}")
+        self.launches = launches
+        if len(per_step) != 3:
+            raise SmokeFailure(f"slice ran {len(per_step)} steps, not 3")
+        if not self.rehearsal and any(l <= 0 for _, l in per_step):
+            raise SmokeFailure("a step ran without the pair kernel")
+        if not (acc_ok and pos_ok and dp < 1e-3 * smv):
+            raise SmokeFailure("slice results are not sane")
+        self.sim = sim
+
+    def profile(self):
+        """Where the time goes in one full force pass at the slice's size
+        (PM + short range for every particle, the work of a step in
+        which all particles are active): host-clock stage times with a
+        synchronize after each, then the same pass under torch.profiler
+        (device activity only) for device time by kernel and the
+        device's busy share.  Not part of the counted main path."""
+        if self.rehearsal:
+            say("profile", "skipped in the CPU rehearsal")
+            return
+        torch = self.torch
+        from torch.profiler import profile, ProfilerActivity
+        sim = self.sim
+
+        def full_pass():
+            t = [time.perf_counter()]
+            sim._compute_pm(record_power=False)
+            self._sync()
+            t.append(time.perf_counter())
+            sim._compute_tree(first_step=True)
+            self._sync()
+            t.append(time.perf_counter())
+            sim._find_timesteps(first_step=False)
+            self._sync()
+            t.append(time.perf_counter())
+            return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+        times = self.sim.times
+        saved = (times.pm_length, times.pm_start, times.mintimebin,
+                 times.maxtimebin, sim.particles)
+        full_pass()
+        ms = full_pass()
+        say("profile", f"full force pass ({sim.n_real} targets): PM "
+            f"{ms[0]:.2f} ms, short range {ms[1]:.2f} ms, timesteps "
+            f"{ms[2]:.2f} ms, total {sum(ms):.2f} ms")
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            full_pass()
+        wall = (time.perf_counter() - t) * 1e3
+        (times.pm_length, times.pm_start, times.mintimebin,
+         times.maxtimebin, sim.particles) = saved
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                rows.append((us / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        groups = {"p2p_kernel": 0.0, "fft": 0.0, "sort": 0.0,
+                  "gather/scatter": 0.0, "scan": 0.0, "other": 0.0}
+        for ms_, _, key in rows:
+            k = key.lower()
+            g = ("p2p_kernel" if "p2p_kernel" in k else
+                 "fft" if "fft" in k else
+                 "sort" if ("sort" in k or "radix" in k) else
+                 "gather/scatter" if any(w in k for w in (
+                     "scatter", "index", "gather")) else
+                 "scan" if "scan" in k else "other")
+            groups[g] += ms_
+        # the profiler's own setup and collection stretch the profiled
+        # pass's wall time, so the busy share is taken against the same
+        # pass unprofiled
+        unprof = sum(ms)
+        say("profile", f"profiled full pass: device busy {busy:.1f} ms = "
+            f"{100 * busy / unprof:.1f}% of the unprofiled pass's "
+            f"{unprof:.1f} ms (idle {100 * (1 - busy / unprof):.1f}%; "
+            f"profiled wall {wall:.1f} ms); by group " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in groups.items()))
+        for ms_, cnt, key in rows[:10]:
+            say("profile", f"  {ms_:9.3f} ms {cnt:5d}x {key[:90]}")
+
+    # ------------------------------------------------------------- report
+    def report(self):
+        r = self.kernel_row
+        row = {"name": "p2p_blocked", "route": "cuda",
+               "source": "shenqi_tpu_torch/csrc/p2p.cu",
+               "replaces": "shenqi_tpu/ops/pallas_p2p.py:153",
+               "launches": self.launches, "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": None}
+        print("kernels: " + json.dumps([{
+            "name": "p2p_blocked", "launches": self.launches,
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"]}]),
+            flush=True)
+        print(json.dumps({"kernels": [row]}), flush=True)
+        print(self.card, flush=True)
+
+
+class _StageClock:
+    """The Simulation's walltime hook: `measure(name)` charges the time
+    since the previous call to `name`, after a device synchronize."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.t = time.perf_counter()
+        self.acc = {}
+
+    def start(self):
+        self.sync()
+        self.t = time.perf_counter()
+        self.acc = {}
+
+    def measure(self, name):
+        self.sync()
+        now = time.perf_counter()
+        self.acc[name] = self.acc.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def take(self):
+        out, self.acc = self.acc, {}
+        return out
+
+
+def _ptxas_report(log: str):
+    """(kernel, 'N registers, S bytes smem, spills ...') per entry."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and fn:
+            pot = "want_pot" if "ILb1E" in fn else "no pot"
+            out.append((f"p2p_kernel<{pot}>" if "p2p_kernel" in fn else fn,
+                        f"{m.group(1)} registers, {m.group(2)} B smem, "
+                        f"{spill}"))
+            fn = None
+    return out
+
+
+def main(argv) -> int:
+    rehearsal = "--cpu-rehearsal" in argv
+    faulthandler.dump_traceback_later(BUDGET_S + 30, exit=True)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not rehearsal and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available (torch.cuda.is_available()"
+              " is False)", file=sys.stderr)
+        return 1
+    try:
+        import shenqi_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: the shenqi_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 1
+    smoke = Smoke(rehearsal)
+    try:
+        for phase in ("env", "build", "kernel", "parity", "slice",
+                      "profile"):
+            getattr(smoke, phase)()
+            if not rehearsal:
+                torch.cuda.synchronize()
+            check_budget(phase)
+        smoke.report()
+    except Exception as e:  # every failure ends the run non-zero
+        import traceback
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED after {elapsed():.1f} s: {e}",
+              file=sys.stderr, flush=True)
+        return 1
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    say("done", f"all phases passed in {elapsed():.1f} s "
+        f"(budget {BUDGET_S:.0f} s)")
+    if rehearsal:
+        print(json.dumps({"ok": True, "rehearsal": "cpu"}), flush=True)
+    else:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

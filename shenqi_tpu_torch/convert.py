@@ -1,0 +1,48 @@
+"""State carried across from the JAX package, exactly.
+
+`particles_from_numpy` takes the fields of shenqi_tpu's ParticleData
+(core/particles.py:64-90) as numpy arrays and builds the port's
+ParticleData: uint32 fields (`ipos`, `id_lo`, `id_hi`) become int32 bit
+patterns, the rest keep their dtype.  `window_from_numpy` turns a JAX
+PolyWindow's arrays into the port's PolyWindow.  Both are exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.particles import ParticleData, u32_numpy_to_i32
+from .gravity.shortrange import PolyWindow
+
+_U32_FIELDS = ("ipos", "id_lo", "id_hi")
+_DTYPES = {"vel": np.float32, "mass": np.float32, "ptype": np.int8,
+           "mask": np.bool_, "timebin": np.int8, "hsml": np.float32,
+           "grav_pm": np.float32, "grav_accel": np.float32,
+           "potential": np.float32, "old_acc": np.float32}
+
+
+def particles_from_numpy(d: dict, device=None) -> ParticleData:
+    """The port's ParticleData from a dict of the JAX fields as numpy."""
+    dev = resolve_device(device)
+    kw = {}
+    for f in ParticleData.__dataclass_fields__:
+        a = np.asarray(d[f])
+        if f in _U32_FIELDS:
+            if a.dtype != np.uint32:
+                raise TypeError(f"{f} must be uint32, got {a.dtype}")
+            a = u32_numpy_to_i32(a)
+        else:
+            a = np.ascontiguousarray(a, dtype=_DTYPES[f])
+        kw[f] = torch.from_numpy(a.copy()).to(dev)
+    return ParticleData(**kw)
+
+
+def window_from_numpy(cf, cp, xmax, device=None) -> PolyWindow:
+    """The port's PolyWindow from a JAX PolyWindow's (cf, cp, xmax)."""
+    dev = resolve_device(device)
+    return PolyWindow(
+        xmax=float(np.float32(xmax)),
+        cf=torch.from_numpy(np.asarray(cf, np.float32).copy()).to(dev),
+        cp=torch.from_numpy(np.asarray(cp, np.float32).copy()).to(dev))

@@ -1,0 +1,326 @@
+"""DM-only TreePM simulation driver (shenqi_tpu/simulation.py:52-960 in
+torch): the reference main loop (run.cpp:331-822) with PM long-range
+gravity, the grid-stencil short-range force and individual timesteps.
+
+  loop:
+    ti_next = min active-bin kick time (clamped to PM step end)
+    drift ALL particles to ti_next
+    [forces: PM on PM steps; short range for the active set]
+    apply_half_kick       (completes the previous half step)
+    update_kick_times
+    [PM step] apply_PM_half_kick  (completes the previous PM half)
+    [outputs at sync points]
+    find_timesteps -> new bins, new PM length
+    apply_half_kick       (starts the new half step)
+    [PM step] apply_PM_half_kick  (starts the new PM half)
+
+This slice ports DM with `hierarchical=False` (the JAX default) and
+the stencil engine.  Gas, neutrinos, the random box offset, HCI,
+hierarchical gravity and the tree engines raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.particles import (ParticleData, POS_SCALE, DM, u32_numpy_to_i32,
+                             wrap_i32)
+from .core.timeline import Timeline, TIMEBINS, dti_from_timebin, \
+    round_down_power_of_two
+from .core.integrate import (DriftKickTimes, TimestepParams,
+                             active_bins_mask, gravity_dloga,
+                             long_range_dloga, assign_timebins,
+                             gravkick_tables, kick_gravity, kick_pm,
+                             is_timebin_active)
+from .core.step_protocol import run_protocol
+from .cosmology.background import Cosmology
+from .gravity.treepm import (GravityConfig, get_window_tables,
+                             default_softening)
+from .gravity.pm import pm_forces, finalize_power
+from .gravity.stencil import stencilgrav, stencilgrav_fused
+from .utils.constants import CM_PER_MPC
+
+
+def _drift(ipos, vel, alive, driftfac, pos_scale_over_box):
+    """ipos += trunc(vel * driftfac * 2^32/box), wrapping as uint32."""
+    dx = vel * driftfac * pos_scale_over_box
+    newpos = wrap_i32(ipos.long() + dx.to(torch.int32).long())
+    return torch.where(alive[:, None], newpos, ipos)
+
+
+@dataclass
+class Simulation:
+    CP: Cosmology
+    boxsize: float
+    timeline: Timeline
+    times: DriftKickTimes
+    gravity: GravityConfig
+    tsp: TimestepParams
+    particles: ParticleData
+    fast_particle_type: int = 2
+    step_count: int = 0
+    power_history: list = field(default_factory=list)
+    snapshots: list = field(default_factory=list)
+    window_tables: object = None
+    hierarchical: bool = False   # Gadget-4 split gravity: not ported
+    on_snapshot: object = None   # callback(sim, atime)
+    on_step: object = None       # callback(sim) at end of each step
+    on_pm_step: object = None    # callback(sim) on PM steps but the first
+    # optional object with .measure(name): stage boundaries in run()
+    # are charged to the reference timer names (PMgrav/Tree/...)
+    walltime: object = None
+    on_drift: object = None      # callback(sim, a0, a1) after drifts
+    hci: object = None           # human control: not ported
+    resumed: bool = False
+    # grow-only stencil caps, so steady-state steps reuse their shapes
+    _tier_cache: dict = field(default_factory=dict)
+    _caps_cache: dict = field(default_factory=dict)
+    n_real: int = 0
+    random_offset_frac: float = 0.0
+    # pair pass through the plain version on any device: only the
+    # on-card parity check sets it
+    _plain_p2p: bool = False
+    # short-range targets of the last force pass (None: all live rows)
+    last_n_targets: Optional[int] = None
+
+    def __post_init__(self):
+        if self.hierarchical:
+            raise NotImplementedError(
+                "hierarchical gravity is not ported yet")
+        if self.gravity.engine != "stencil":
+            raise NotImplementedError(
+                f"engine {self.gravity.engine!r}: only 'stencil' is ported")
+        if self.random_offset_frac:
+            raise NotImplementedError("the random box offset is not ported")
+
+    @property
+    def device(self) -> torch.device:
+        return self.particles.device
+
+    def _wt(self, name: str):
+        if self.walltime is not None:
+            self.walltime.measure(name)
+
+    @classmethod
+    def from_arrays(cls, pos, vel, mass, ids, CP, boxsize, nmesh,
+                    timeline, atime, tsp: Optional[TimestepParams] = None,
+                    gravity_kw: Optional[dict] = None,
+                    extra_capacity: int = 0, device=None):
+        """Build a DM simulation from host arrays; its tensors live on
+        `device` (CUDA unless the caller passes device='cpu')."""
+        dev = resolve_device(device)
+        from .core.particles import float_to_ipos
+        n = len(pos)
+        ncap = ((n + extra_capacity + 127) // 128) * 128
+        ipos_np = np.zeros((ncap, 3), np.int32)
+        ipos_np[:n] = float_to_ipos(pos, boxsize, device="cpu").numpy()
+        vel_np = np.zeros((ncap, 3), np.float32)
+        vel_np[:n] = vel
+        mass_np = np.zeros(ncap, np.float32)
+        mass_np[:n] = mass if np.ndim(mass) else np.full(n, mass)
+        mask_np = np.zeros(ncap, bool)
+        mask_np[:n] = True
+        ids_np = np.zeros(ncap, np.uint64)
+        ids_np[:n] = ids
+        lo = (ids_np & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (ids_np >> np.uint64(32)).astype(np.uint32)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        p = ParticleData.zeros(ncap, device=dev).replace(
+            ipos=t(ipos_np), vel=t(vel_np), mass=t(mass_np),
+            mask=t(mask_np),
+            ptype=torch.full((ncap,), DM, dtype=torch.int8, device=dev),
+            timebin=torch.ones(ncap, dtype=torch.int8, device=dev),
+            id_lo=t(u32_numpy_to_i32(lo)), id_hi=t(u32_numpy_to_i32(hi)))
+        soft = default_softening(boxsize, n)
+        gkw = dict(boxsize=boxsize, nmesh=nmesh, G=CP.GravInternal,
+                   softening=soft,
+                   tree_nlevels=min(20, max(6, int(np.ceil(
+                       np.log(max(n, 8) / 16) / np.log(8))) + 3)),
+                   tree_ncrit=32)
+        if gravity_kw:
+            gkw.update(gravity_kw)
+        gravity = GravityConfig(**gkw)
+        ti = timeline.ti_from_loga(np.log(atime))
+        sim = cls(CP=CP, boxsize=boxsize, timeline=timeline,
+                  times=DriftKickTimes.init(ti), gravity=gravity,
+                  tsp=tsp or TimestepParams(), particles=p)
+        sim.n_real = n
+        return sim
+
+    # ---------- pieces ----------
+    def atime(self) -> float:
+        return self.timeline.atime_from_ti(self.times.ti_current)
+
+    def _drift_all(self, ti_next: int):
+        a0 = self.atime()
+        fac = self.timeline.exact_drift_factor(self.CP,
+                                               self.times.ti_current,
+                                               ti_next)
+        p = self.particles
+        # f32 scalars, as the JAX package passes them
+        self.particles = p.replace(ipos=_drift(
+            p.ipos, p.vel, p.mask, float(np.float32(fac)),
+            float(np.float32(POS_SCALE / self.boxsize))))
+        if self.on_drift is not None:
+            self.on_drift(self, a0, self.timeline.atime_from_ti(ti_next))
+        self.times.ti_current = ti_next
+        for b in range(TIMEBINS + 1):
+            if is_timebin_active(b, ti_next):
+                self.times.ti_lastactivedrift[b] = ti_next
+
+    def _compute_pm(self, record_power=True):
+        if getattr(self, "nu_table", None) is not None:
+            raise NotImplementedError(
+                "the neutrino linear response is not ported")
+        p = self.particles
+        accel, pot, ps = pm_forces(p.ipos, p.mass, self.gravity.pm(),
+                                   mask=p.mask)
+        self.particles = p.replace(grav_pm=accel, potential=pot)
+        if record_power:
+            mpc = CM_PER_MPC / 3.085678e21
+            kk, power, nmodes = finalize_power(ps, self.gravity.pm(),
+                                               self.boxsize / mpc)
+            self.power_history.append((self.atime(), kk, power, nmodes))
+
+    def _compute_tree(self, first_step: bool):
+        """Grid-stencil short range (simulation.py:353-412 of the JAX
+        package).  Steady state takes the fused path with cached caps
+        and a device `ok` flag; on overflow the cap-regrowing slow path
+        redoes the call.  Only active-bin particles are targets when
+        they are fewer than half the live ones; inactive rows keep
+        their last-sync acceleration (run.cpp:488 ActiveParticles).
+        Sources are always all particles."""
+        p = self.particles
+        if self.window_tables is None and \
+                self.gravity.window_type == "exact":
+            self.window_tables = get_window_tables(self.gravity,
+                                                   device=self.device)
+        sp = self.gravity.short(use_bh=1 if first_step else None)
+        mass = torch.where(p.mask, p.mass, 0.0)
+        active = None
+        n_act = None
+        if not first_step:
+            act = self._active_mask()
+            n_all = int(p.mask.sum())
+            n_act = int(act.sum())
+            if n_act < n_all // 2:
+                active = act
+        kw = dict(sub=self.gravity.refine_sub, tier_cache=self._tier_cache,
+                  caps_cache=self._caps_cache, want_pot=False,
+                  _plain=self._plain_p2p)
+        if active is not None:
+            kw.update(n_targets=max(n_act, 1), active=active)
+        self.last_n_targets = n_act if active is not None else None
+        acc, _, ok = stencilgrav_fused(p.ipos, mass, sp, self.window_tables,
+                                       **kw)
+        if not bool(ok):
+            acc, _, _ = stencilgrav(p.ipos, mass, sp, self.window_tables,
+                                    **kw)
+        if active is not None:
+            # inactive rows keep their stored (last-sync) accel
+            acc = torch.where(active[:, None], acc, p.grav_accel)
+        self.particles = p.replace(grav_accel=acc)
+
+    def _apply_half_kick(self, skip_grav: bool = False):
+        gk, _, _ = gravkick_tables(self.CP, self.timeline, self.times,
+                                   device=self.device)
+        p = self.particles
+        if not skip_grav:
+            self.particles = p.replace(vel=kick_gravity(
+                p.vel, p.grav_accel, p.timebin, p.mask, gk))
+
+    def _apply_pm_half_kick(self):
+        t0 = self.times.pm_kick
+        t1 = t0 + self.times.pm_length // 2
+        fac = self.timeline.exact_gravkick_factor(self.CP, t0, t1)
+        p = self.particles
+        self.particles = p.replace(vel=kick_pm(
+            p.vel, p.grav_pm, p.mask, float(np.float32(fac))))
+        self.times.pm_kick = t1
+
+    def _find_timesteps(self, first_step: bool):
+        times = self.times
+        is_pm = times.is_pm()
+        p = self.particles
+        atime = self.atime()
+        if is_pm:
+            asmth_internal = (self.gravity.asmth * self.boxsize
+                              / self.gravity.nmesh)
+            dloga_pm = long_range_dloga(
+                p.vel, p.mass, p.ptype, p.mask, atime, self.CP,
+                self.boxsize, asmth_internal, self.tsp)
+            dti = self.timeline.dti_from_dloga(dloga_pm, times.ti_current)
+            dti = round_down_power_of_two(dti)
+            dti_max = (self.timeline.find_next_ti_sync(times.ti_current)
+                       - times.pm_kick)
+            times.pm_length = min(dti, dti_max)
+            times.pm_start = times.pm_kick
+
+        hubble = float(self.CP.hubble_function(atime))
+        accel_tot = p.grav_accel + p.grav_pm
+        dloga = gravity_dloga(accel_tot, atime, hubble,
+                              self.gravity.softening,
+                              self.tsp.ErrTolIntAccuracy)
+        # store old_acc for the next step's opening criterion
+        oldacc = torch.linalg.norm(accel_tot, dim=-1) / self.gravity.G
+        active = p.mask if first_step else self._active_mask()
+        newbins, bad = assign_timebins(dloga, p.timebin, active & p.mask,
+                                       times, self.timeline,
+                                       self.tsp.MinSizeTimestep)
+        self.particles = p.replace(old_acc=oldacc, timebin=newbins)
+        occ = newbins.long()[p.mask]
+        if occ.numel():
+            lo, hi = torch.stack([occ.min(), occ.max()]).tolist()
+            times.mintimebin, times.maxtimebin = int(lo), int(hi)
+        # PM length never below the largest occupied bin
+        if is_pm and times.pm_length < dti_from_timebin(times.maxtimebin):
+            times.pm_length = dti_from_timebin(times.maxtimebin)
+        return bad
+
+    def _active_mask(self):
+        bins_active = torch.as_tensor(active_bins_mask(self.times.ti_current),
+                                      device=self.device)
+        return bins_active[self.particles.timebin.long()] & \
+            self.particles.mask
+
+    # ---------- the main loop ----------
+    def run(self, max_steps: int = 10 ** 9):
+        """Evolve until the last sync point (or max_steps); the stage
+        order lives in core/step_protocol.run_protocol."""
+        return run_protocol(self, max_steps)
+
+    # ---------- step-protocol adapters (core/step_protocol) -------
+    def proto_drift(self, ti_next):
+        self._drift_all(ti_next)
+
+    def proto_forces(self, is_pm, first):
+        if is_pm:
+            self._compute_pm()
+            self._wt("PMgrav")
+        self._compute_tree(first_step=first)
+        self._wt("Tree")
+
+    def proto_sources(self, is_pm, first):
+        """No source terms without gas."""
+
+    def proto_snapshot(self, atime):
+        if self.on_snapshot:
+            self.on_snapshot(self, atime)
+
+    def proto_pre_timestep(self):
+        """No diagnostics before find-timesteps in the DM slice."""
+
+    def proto_bad_timestep(self, bad):
+        # emergency dump before aborting (run.cpp:794-797)
+        if getattr(self, "on_bad_timestep", None):
+            self.on_bad_timestep(self)
+        raise RuntimeError(f"{bad} bad timesteps at step "
+                           f"{self.step_count}")
