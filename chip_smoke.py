@@ -11,9 +11,15 @@ BUDGET_S for the whole run, the kernel build included:
           whether triton imports
   build   nvcc of csrc/*.cu into C-ABI libraries; ptxas registers,
           shared memory and spills per kernel instantiation
-  kernel  p2p_blocked against p2p_blocked_reference on the card, at the
-          shapes of a real tier of the 128^3 run (blk 32) and of the
-          per-target fallback (blk 1), with and without the potential
+  kernel  every launch shape (nb, blk, S) of one stencil pass at 128^3,
+          the per-target fallback's shape (blk 1) and blk 128, with and
+          without the potential: p2p_blocked against
+          p2p_blocked_reference, two launches of the same inputs
+          compared bit for bit, and the kernel timed against its bound
+          (counted from the live pairs inside and past the window) and
+          the issue floor; the pass's sums; the window degree, the
+          kernel instantiation, and the compiled-in degree timed
+          against the run-time-degree kernel
   parity  the slice at 32^3, mesh 64, 2 steps, once through the kernel
           and once through the plain version; trajectory limits of
           tests/test_torch_simulation.py
@@ -46,6 +52,10 @@ import numpy as np
 BUDGET_S = 285.0
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12       # HBM3
+# the clock of that f32 rate: 132 SMs x 128 FMA lanes x 2 flops
+H100_CLOCK = H100_F32_FLOPS / (132 * 128 * 2)
+H100_ISSUE_S = 132 * 128 * H100_CLOCK   # thread-instructions/s, 4 x 32 per SM
+H100_XU_S = 132 * 16 * H100_CLOCK       # converts and rsqrt, 16 per SM
 T0 = time.perf_counter()
 
 
@@ -182,116 +192,208 @@ class Smoke:
         torch = self.torch
         from shenqi_tpu_torch.gravity import stencil as st
         from shenqi_tpu_torch.gravity.treepm import get_window_tables
-        from shenqi_tpu_torch.ops.p2p import (p2p_blocked,
-                                              p2p_blocked_reference,
-                                              p2p_flops_per_pair)
+        from shenqi_tpu_torch.ops.p2p import (kernel_instantiation,
+                                              p2p_blocked,
+                                              p2p_blocked_reference)
         t = time.perf_counter()
         sim = self._make_sim(self.n_kernel, self.mesh_slice)
-        sim.window_tables = get_window_tables(sim.gravity, device=self.dev)
+        sim.window_tables = w = get_window_tables(sim.gravity,
+                                                  device=self.dev)
         self.sim = sim
+        ncf, ncp = w.cf.shape[0], w.cp.shape[0]
+        inst = ("plain version (CPU)" if self.rehearsal else
+                f"{kernel_instantiation(w, False)}; with the potential "
+                f"{kernel_instantiation(w, True)}")
         say("kernel", f"{sim.particles.n} clustered particles set up in "
-            f"{time.perf_counter() - t:.2f} s (window degree "
-            f"{sim.window_tables.cf.shape[0] - 1})")
+            f"{time.perf_counter() - t:.2f} s (window degree {ncf - 1}, "
+            f"potential {ncp - 1}; kernel instantiation: {inst})")
         # record the pair-kernel inputs of one stencil pass over this
-        # state: the biggest tier batch is the shape the main path runs
-        best = {}
+        # state, one example per distinct launch shape (nb, blk, S)
+        shapes = {}
         real = st.p2p_blocked
 
         def record(*a, **kw):
-            work = a[2].shape[0] * a[2].shape[1] * kw["blk"]
-            if work > best.get("work", -1):
-                best.update(work=work, args=a, kw=dict(kw))
+            key = (a[2].shape[0], kw["blk"], a[2].shape[1])
+            shapes.setdefault(key, [0, a, dict(kw)])[0] += 1
             return real(*a, **kw)
 
         st.p2p_blocked = record
         try:
             p = sim.particles
             st.stencilgrav(p.ipos, torch.where(p.mask, p.mass, 0.0),
-                           sim.gravity.short(), sim.window_tables,
-                           tier_cache={})
+                           sim.gravity.short(), w, tier_cache={})
         finally:
             st.p2p_blocked = real
-        args, kw = best["args"], best["kw"]
+        # every launch shape of the pass, the per-target fallback's
+        # shape (blk = 1, each target of the main-path tier with its
+        # block's source table) and blk = 128 (the JAX blocked engine's
+        # block: four sub-blocks' targets against the first one's
+        # sources), each against its bound and its plain version
+        main = max(shapes, key=lambda k: k[0] * k[1] * k[2])
+        _, args, kw = shapes[main]
+        rest = args[3:]
         tgt, src, sm = args[:3]
-        nb, S = sm.shape
-        say("kernel", f"main-path tier: nb={nb} blk={kw['blk']} S={S} "
-            f"sch={kw['sch']}")
-        w = sim.window_tables
-        ncf, ncp = w.cf.shape[0], w.cp.shape[0]
-        # the per-target fallback's shape: blk = 1, each target with its
-        # block's source table
+        nb = sm.shape[0]
+        blk = kw["blk"]
         nb1 = min(nb, 32)
-        one = (tgt[:nb1].reshape(nb1 * kw["blk"], 1, 3).contiguous(),
-               src[:nb1].repeat_interleave(kw["blk"], 0).contiguous(),
-               sm[:nb1].repeat_interleave(kw["blk"], 0).contiguous())
+        one = (tgt[:nb1].reshape(nb1 * blk, 1, 3).contiguous(),
+               src[:nb1].repeat_interleave(blk, 0).contiguous(),
+               sm[:nb1].repeat_interleave(blk, 0).contiguous())
+        nb4 = nb * blk // 128
+        four = (tgt[:nb4 * 128 // blk].reshape(nb4, 128, 3).contiguous(),
+                src[::128 // blk][:nb4].contiguous(),
+                sm[::128 // blk][:nb4].contiguous())
+        keys = sorted(shapes)
+        cases = [(shapes[k][0], shapes[k][1][:3], shapes[k][2])
+                 for k in keys]
+        cases += [(0, one, dict(kw, blk=1)), (0, four, dict(kw, blk=128))]
+        n_all = sum(v[0] for v in shapes.values())
+        tot = {False: [0.0] * 3, True: [0.0] * 3}
         rows = []
-        for blk, ins in ((kw["blk"], (tgt, src, sm)), (1, one)):
+        for n, ins, kwc in cases:
+            inwin = self._in_window(ins, rest)
             for want_pot in (False, True):
-                rows.append(self._compare(
-                    p2p_blocked, p2p_blocked_reference, ins, args[3:],
-                    dict(kw, blk=blk, want_pot=want_pot), ncf, ncp,
-                    p2p_flops_per_pair))
-        for r in rows:
-            say("kernel", "p2p_blocked " + " ".join(
-                f"{k}={v}" for k, v in r.items()))
-            if not r["rel_err"] <= 2e-4:
-                raise SmokeFailure(f"p2p_blocked disagrees with its plain "
-                                   f"version: {r}")
-        self.kernel_row = rows[0]
-        del best, args, tgt, src, sm, one
+                r = self._compare(p2p_blocked, p2p_blocked_reference, ins,
+                                  rest, dict(kwc, want_pot=want_pot), ncf,
+                                  ncp, inwin)
+                for i, k in enumerate(("ms", "bound_ms", "floor_ms")):
+                    tot[want_pot][i] += n * r[k]
+                say("kernel", f"x{n} per pass: p2p_blocked " + " ".join(
+                    f"{k}={v}" for k, v in r.items())
+                    + f"; {100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+                    f"{100 * r['floor_ms'] / r['ms']:.1f}% of issue floor")
+                if not r["rel_err"] < 2e-4:
+                    raise SmokeFailure(f"p2p_blocked disagrees with its "
+                                       f"plain version: {r}")
+                if not r["repeatable"]:
+                    raise SmokeFailure(f"p2p_blocked gave other bits on a "
+                                       f"second launch of the same inputs: "
+                                       f"{r}")
+                rows.append(r)
+        for want_pot, (ms, bound, floor) in tot.items():
+            say("kernel", f"one full pass, {n_all} launches, potential "
+                f"{want_pot}: kernel {ms:.3f} ms against {bound:.3f} ms of "
+                f"bounds ({100 * bound / ms:.1f}%) and {floor:.3f} ms of "
+                f"issue floors ({100 * floor / ms:.1f}%)")
+        # the degree compiled in against the run-time-degree kernel at
+        # the main-path tier: the same window with one zero coefficient
+        # more (one more Clenshaw step per window) takes the latter
+        pad = w._replace(cf=torch.cat([w.cf, w.cf.new_zeros(1)]),
+                         cp=torch.cat([w.cp, w.cp.new_zeros(1)]))
+        for want_pot in (False, True):
+            kwp = dict(kw, want_pot=want_pot)
+            ms_c, ms_r = self._time(
+                lambda: p2p_blocked(*args, **kwp),
+                lambda: p2p_blocked(*args[:6], pad, *args[7:], **kwp))
+            say("kernel", f"main-path tier, potential {want_pot}: degree "
+                f"{ncf - 1} compiled in {ms_c:.4f} ms, run-time degree "
+                f"{ncf} (zero top coefficient) {ms_r:.4f} ms")
+        self.kernel_row = rows[2 * keys.index(main)]
+        del shapes, args, tgt, src, sm, one, four, cases
 
-    def _compare(self, kern, plain, ins, rest, kw, ncf, ncp, flops_fn):
+    def _in_window(self, ins, rest):
+        """Live pair-lanes inside the window range (x = r / (cell xmax)
+        < 1), with x computed as the plain version computes it."""
+        torch = self.torch
+        from shenqi_tpu_torch.core.particles import wrap_i32
+        from shenqi_tpu_torch.ops.p2p import _scalars
+        tgt, src, sm = ins
+        to_f, _, icx, _ = (float(v) for v in _scalars(*rest[:5]))
+        step = max(1, (1 << 22) // (tgt.shape[1] * sm.shape[1]))
+        n = 0
+        for lo in range(0, sm.shape[0], step):
+            d = wrap_i32(src[lo:lo + step].long()[:, None]
+                         - tgt[lo:lo + step].long()[:, :, None])
+            r2 = (d.float() * to_f).square().sum(-1)
+            rinv = torch.where(r2 > 0, torch.rsqrt(r2), 0.0)
+            x = r2 * rinv * icx
+            n += int(((x < 1.0) & (sm[lo:lo + step] != 0)[:, None]).sum())
+        return n
+
+    def _bound(self, ins, blk, want_pot, ncf, ncp, inwin):
+        """(least time in ms, what sets it, live pair-lanes): the f32
+        operations of the live pairs at the peak f32 rate (a pair inside
+        the window at its full count, one past it at the separation, r
+        and x), or each input read once and each output written once at
+        the memory rate, whichever is longer."""
+        from shenqi_tpu_torch.ops.p2p import (p2p_flops_outside_window,
+                                              p2p_flops_per_pair)
+        tgt, src, sm = ins
+        nb = sm.shape[0]
+        pairs = int((sm != 0).sum()) * blk
+        flops = (inwin * p2p_flops_per_pair(ncf, ncp, want_pot)
+                 + (pairs - inwin) * p2p_flops_outside_window())
+        nbytes = (tgt.numel() + src.numel() + sm.numel() + nb * blk * 3
+                  + (nb * blk if want_pot else 0)) * 4
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_S * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes", pairs)
+
+    def _compare(self, kern, plain, ins, rest, kw, ncf, ncp, inwin):
         torch = self.torch
         a_k, p_k = kern(*ins, *rest, **kw)
+        a_2, p_2 = kern(*ins, *rest, **kw)
+        repeatable = bool(torch.equal(a_k, a_2) and (
+            not kw["want_pot"] or torch.equal(p_k, p_2)))
         a_p, p_p = plain(*ins, *rest, **kw)
         err = float((a_k - a_p).abs().max())
         rel = err / max(float(a_p.abs().max()), 1e-30)
         if kw["want_pot"]:
             rel = max(rel, float((p_k - p_p).abs().max())
                       / max(float(p_p.abs().max()), 1e-30))
-        tgt, src, sm = ins
-        nb, S = sm.shape
-        blk = kw["blk"]
-        lanes = int((sm != 0).sum())
-        pairs = lanes * blk
-        flops = pairs * flops_fn(ncf, ncp, kw["want_pot"])
-        nbytes = (tgt.numel() + src.numel() + sm.numel() + nb * blk * 3
-                  + (nb * blk if kw["want_pot"] else 0)) * 4
-        t_ops = flops / H100_F32_FLOPS * 1e3
-        t_bytes = nbytes / H100_BYTES_S * 1e3
-        ms_k, ms_p = self._time_pair(lambda: kern(*ins, *rest, **kw),
-                                     lambda: plain(*ins, *rest, **kw))
-        return dict(blk=blk, want_pot=kw["want_pot"], nb=nb, S=S,
-                    pair_lanes=pairs, max_abs_err=err, rel_err=rel,
-                    ms=ms_k, plain_ms=ms_p, bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    flops_per_pair=flops_fn(ncf, ncp, kw["want_pot"]))
+        nb, S = ins[2].shape
+        bound, by, pairs = self._bound(ins, kw["blk"], kw["want_pot"], ncf,
+                                       ncp, inwin)
+        floor = _issue_floor_ms(pairs, inwin, ncf, ncp, kw["want_pot"])
+        ms_k, ms_p = self._time(lambda: kern(*ins, *rest, **kw),
+                                lambda: plain(*ins, *rest, **kw))
+        return dict(blk=kw["blk"], want_pot=kw["want_pot"], nb=nb, S=S,
+                    pair_lanes=pairs, in_window=inwin, max_abs_err=err,
+                    rel_err=rel, repeatable=repeatable, ms=ms_k,
+                    plain_ms=ms_p, bound_ms=bound, bound_by=by,
+                    floor_ms=floor)
 
-    def _time_pair(self, fk, fp):
-        """Kernel and plain version timed in turns (k, p, k, p) with CUDA
-        events, 5 calls each; the rehearsal times one call with the host
-        clock."""
+    def _time(self, *fns):
+        """Each function timed in turns (f1, f2, ..., f1, f2, ...) with
+        CUDA events, best of 2 turns, each turn of enough calls to last
+        about 5 ms (at least 5), so that a short kernel is not timed
+        while the card's clocks ramp up; the rehearsal times one call
+        with the host clock."""
         torch = self.torch
-        reps = 1 if self.rehearsal else 5
-        fk(), fp()                                   # warm up
-        ks, ps = [], []
+        reps = []
+        for f in fns:                                # warm up, size turns
+            if self.rehearsal:
+                f()
+                reps.append(1)
+                continue
+            f()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            f()
+            e1.record()
+            torch.cuda.synchronize()
+            reps.append(min(1000, max(5, int(5.0 / max(
+                e0.elapsed_time(e1), 1e-3)))))
+        best = [float("inf")] * len(fns)
         for _ in range(2):
-            for f, acc in ((fk, ks), (fp, ps)):
+            for i, f in enumerate(fns):
                 if self.rehearsal:
                     t = time.perf_counter()
-                    for _ in range(reps):
-                        f()
-                    acc.append((time.perf_counter() - t) * 1e3 / reps)
-                    continue
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                for _ in range(reps):
                     f()
-                e1.record()
-                torch.cuda.synchronize()
-                acc.append(e0.elapsed_time(e1) / reps)
-        return min(ks), min(ps)
+                    ms = (time.perf_counter() - t) * 1e3
+                else:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    for _ in range(reps[i]):
+                        f()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    ms = e0.elapsed_time(e1) / reps[i]
+                best[i] = min(best[i], ms)
+        return best
 
     # ------------------------------------------------------------- parity
     def parity(self):
@@ -339,6 +441,7 @@ class Smoke:
 
     def slice(self):
         torch = self.torch
+        from shenqi_tpu_torch.gravity import stencil as st
         from shenqi_tpu_torch.ops.p2p import p2p_blocked
         sim = self.sim
         if sim.particles.n != self.n_slice ** 3:
@@ -346,12 +449,29 @@ class Smoke:
         n = sim.n_real
         steps = []
         clock = _StageClock(self._sync)
+        # the pair kernel's device time per step: CUDA events around each
+        # call from the stencil, read after the step's synchronize
+        events = []
+        real = st.p2p_blocked
+
+        def timed(*a, **kw):
+            if self.rehearsal:
+                return real(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
 
         def on_step(s):
             self._sync()
             clock.measure("kicks")
+            kms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+            events.clear()
             steps.append((time.perf_counter(), p2p_blocked.launches,
-                          clock.take(), s.last_n_targets or n))
+                          clock.take(), s.last_n_targets or n, kms))
             check_budget(f"slice step {s.step_count}")
 
         sim.on_step = on_step
@@ -361,20 +481,24 @@ class Smoke:
         if not self.rehearsal:
             torch.cuda.reset_peak_memory_stats()
         # the main path: counts set to 0 just before, read just after
+        st.p2p_blocked = timed
         p2p_blocked.launches = 0
         t0 = time.perf_counter()
         clock.start()
         sim.walltime = clock
-        sim.run(max_steps=3)
+        try:
+            sim.run(max_steps=3)
+        finally:
+            st.p2p_blocked = real
         launches = p2p_blocked.launches
         sim.walltime = None
         prev_t, prev_l = t0, 0
         per_step = []
-        for i, (t, l, stages, ntgt) in enumerate(steps):
+        for i, (t, l, stages, ntgt, kms) in enumerate(steps):
             per_step.append((t - prev_t, l - prev_l))
             say("slice", f"step {i}: {t - prev_t:.3f} s, {ntgt} short-range"
-                f" targets, p2p_blocked launches {l - prev_l}; stages "
-                + ", ".join(
+                f" targets, p2p_blocked launches {l - prev_l} taking "
+                f"{kms:.3f} ms of device time; stages " + ", ".join(
                     f"{k} {v:.3f} s" for k, v in stages.items()))
             prev_t, prev_l = t, l
         p = sim.particles
@@ -523,6 +647,24 @@ class _StageClock:
         return out
 
 
+def _issue_floor_ms(pairs, inwin, ncf, ncp, want_pot):
+    """The pipe-limited floor beside the f32 bound: the operations of
+    ops/p2p.py's tally (a pair inside the window at its full count, one
+    past it at the separation, r and x) as issued instructions (an FMA,
+    which the tally counts twice, issues once) at 128 per clock per SM,
+    or each live pair's 3 int->float converts and rsqrt at the 16 per
+    clock per SM of their pipe, whichever takes longer."""
+    from shenqi_tpu_torch.ops.p2p import (p2p_flops_outside_window,
+                                          p2p_flops_per_pair)
+    # FMAs in the tally: r^2 2, t 1, Clenshaw one per term, accumulation
+    # 3; the potential's Clenshaw one per term and its accumulation 1;
+    # past the window, r^2's 2
+    fmas = 6 + ncf + (ncp + 1 if want_pot else 0)
+    instr = (inwin * (p2p_flops_per_pair(ncf, ncp, want_pot) - fmas)
+             + (pairs - inwin) * (p2p_flops_outside_window() - 2))
+    return max(instr / H100_ISSUE_S, pairs * 4 / H100_XU_S) * 1e3
+
+
 def _ptxas_report(log: str):
     """(kernel, 'N registers, S bytes smem, spills ...') per entry."""
     out, fn, spill = [], None, ""
@@ -538,9 +680,13 @@ def _ptxas_report(log: str):
             continue
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and fn:
-            pot = "want_pot" if "ILb1E" in fn else "no pot"
-            out.append((f"p2p_kernel<{pot}>" if "p2p_kernel" in fn else fn,
-                        f"{m.group(1)} registers, {m.group(2)} B smem, "
+            t = re.search(r"p2p_kernelILb([01])ELi(\d+)E", fn)
+            if t:
+                pot = "want_pot" if t.group(1) == "1" else "no pot"
+                nc = int(t.group(2))
+                fn = (f"p2p_kernel<{pot}, "
+                      f"{f'degree {nc - 1}' if nc else 'run-time degree'}>")
+            out.append((fn, f"{m.group(1)} registers, {m.group(2)} B smem, "
                         f"{spill}"))
             fn = None
     return out

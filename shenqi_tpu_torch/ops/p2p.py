@@ -26,7 +26,7 @@ from ..gravity.shortrange import PolyWindow, clenshaw, host_coeffs
 
 BLK = 128            # default targets per block
 SCH = 512            # source-lane granularity S must be a multiple of
-MAX_BLK = 256        # the kernel's thread limit per block
+MAX_BLK = 256        # the kernel's largest target block
 MAX_COEF = 64        # the kernel's Chebyshev coefficient limit
 
 
@@ -57,6 +57,14 @@ def p2p_flops_per_pair(ncf: int, ncp: int = 0, want_pot: bool = False):
     if want_pot:
         n += cl(ncp) + 2 + 2 + 2
     return n
+
+
+def p2p_flops_outside_window() -> int:
+    """f32 operations of one non-padding pair past the window range
+    (x >= 1), where the window is 0 and the pair adds nothing, with or
+    without the potential: padding test 1, separation 9, r^2 5, rsqrt
+    with its test and select 3, r 1, x and its test 2."""
+    return 1 + 9 + 5 + 3 + 1 + 2
 
 
 def p2p_blocked_reference(tgt_ipos, src_ipos, src_mass, boxsize,
@@ -143,9 +151,20 @@ def _lib():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     f.argtypes = [P, P, P, P, I, P, I, P, P, I, I, I, F, F, F, F, I, I, P]
     f.restype = I
+    lib.shenqi_p2p_instantiation.argtypes = [I, I, I]
+    lib.shenqi_p2p_instantiation.restype = I
     lib.shenqi_cuda_error_string.argtypes = [I]
     lib.shenqi_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_instantiation(window: PolyWindow, want_pot: bool) -> str:
+    """Which instantiation of csrc/p2p.cu serves this window: the one
+    with the degree compiled in (coefficients in registers), or the
+    run-time-degree one.  Builds the library; needs the CUDA toolkit."""
+    nc = _lib().shenqi_p2p_instantiation(window.cf.shape[0],
+                                         window.cp.shape[0], int(want_pot))
+    return f"degree {nc - 1} compiled in" if nc else "run-time degree"
 
 
 def _check(name, t, dtype, shape, device):

@@ -6,50 +6,122 @@ workers must all collect the same tests).  On the card:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+from functools import lru_cache
+
 import numpy as np
 import pytest
 import torch
 
 
-def _inputs(nb, blk, S, seed, device):
+def _inputs(nb, blk, S, seed):
     rng = np.random.RandomState(seed)
     tgt = rng.randint(0, 2 ** 32, (nb, blk, 3), dtype=np.uint64
                       ).astype(np.uint32)
     src = rng.randint(0, 2 ** 32, (nb, S, 3), dtype=np.uint64
                       ).astype(np.uint32)
-    src[:, : 2 * blk] = (np.resize(tgt, (nb, 2 * blk, 3)).astype(np.int64)
-                         + rng.randint(-2 ** 22, 2 ** 22, (nb, 2 * blk, 3))
-                         ).astype(np.uint32)
+    near = min(S, 2 * blk)
+    src[:, :near] = (np.resize(tgt, (nb, near, 3)).astype(np.int64)
+                     + rng.randint(-2 ** 22, 2 ** 22, (nb, near, 3))
+                     ).astype(np.uint32)
     sm = rng.uniform(0.5, 2.0, (nb, S)).astype(np.float32)
     sm[:, ::7] = 0.0
-
-    def t(a):
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return t(tgt), t(src), t(sm)
+    return tgt, src, sm
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("blk", [1, 32, 128])
-@pytest.mark.parametrize("want_pot", [False, True])
-def test_p2p_kernel_matches_plain_version(blk, want_pot):
+def _t(a, device):
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@lru_cache(maxsize=None)
+def _window(dev, degree=None):
     from shenqi_tpu_torch.gravity.window import window_polynomials
+    return window_polynomials(1.5, degree=degree, device=dev)
+
+
+def _check(tgt, src, sm, blk, want_pot, dev, w=None, sch=None):
+    """Kernel against the plain version at 2e-4 of max |acc| and |pot|
+    (tests/test_pallas_p2p.py's limit), each launch counted, and a
+    second launch of the same inputs giving the same bits."""
     from shenqi_tpu_torch.ops.p2p import p2p_blocked, p2p_blocked_reference
-    dev = torch.device("cuda")
-    w = window_polynomials(1.5, device=dev)
-    tgt, src, sm = _inputs(64, blk, 1024, blk, dev)
-    args = (tgt, src, sm, 50000.0, 120.0, 50000.0 / 64, w, 43007.1)
+    w = _window(dev) if w is None else w
+    args = (_t(tgt, dev), _t(src, dev), _t(sm, dev), 50000.0, 120.0,
+            50000.0 / 64, w, 43007.1)
+    kw = dict(want_pot=want_pot, blk=blk)
+    if sch is not None:
+        kw["sch"] = sch
     before = p2p_blocked.launches
-    acc, pot = p2p_blocked(*args, want_pot=want_pot, blk=blk)
+    acc, pot = p2p_blocked(*args, **kw)
+    acc2, pot2 = p2p_blocked(*args, **kw)
     torch.cuda.synchronize()
-    assert p2p_blocked.launches == before + 1
-    ref_acc, ref_pot = p2p_blocked_reference(*args, want_pot=want_pot,
-                                             blk=blk)
+    assert p2p_blocked.launches == before + 2
+    assert torch.equal(acc, acc2)
+    ref_acc, ref_pot = p2p_blocked_reference(*args, **kw)
     scale = ref_acc.abs().max()
     assert (acc - ref_acc).abs().max() < 2e-4 * scale
     if want_pot:
+        assert torch.equal(pot, pot2)
         assert (pot - ref_pot).abs().max() < 2e-4 * ref_pot.abs().max()
+    return acc, pot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [1, 32, 128, 256])
+@pytest.mark.parametrize("want_pot", [False, True])
+def test_p2p_kernel_matches_plain_version(blk, want_pot):
+    dev = _card()
+    _check(*_inputs(64, blk, 1024, blk), blk, want_pot, dev)
+
+
+# (nb, blk, S, sch): S of one 32-lane chunk; S not a multiple of the
+# chunk (nor of the 8 warps' split); S = 4096 (the main-path tier); nb
+# below the card's 132 SMs; blk that are not powers of two
+SHAPES = [(64, 32, 32, 32), (64, 32, 1000, 8), (64, 1, 36, 4),
+          (16, 32, 4096, 512), (5, 32, 512, 512), (40, 7, 520, 8),
+          (24, 100, 264, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,blk,S,sch", SHAPES)
+@pytest.mark.parametrize("want_pot", [False, True])
+def test_p2p_kernel_shapes(nb, blk, S, sch, want_pot):
+    dev = _card()
+    _check(*_inputs(nb, blk, S, nb + S), blk, want_pot, dev, sch=sch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [1, 32])
+def test_p2p_kernel_padding(blk):
+    """A block of all-padding lanes gives exactly 0; a chunk whose only
+    mass sits in its last lane, behind whole padding chunks, counts."""
+    dev = _card()
+    tgt, src, sm = _inputs(4, blk, 512, 7)
+    sm[0] = 0.0
+    sm[1] = 0.0
+    sm[1, 95] = 1.5               # last lane of the third 32-lane chunk
+    src[1, 95] = (tgt[1, 0].astype(np.int64) + 2 ** 20).astype(np.uint32)
+    acc, pot = _check(tgt, src, sm, blk, True, dev)
+    assert torch.count_nonzero(acc[0]) == 0
+    assert torch.count_nonzero(pot[0]) == 0
+    assert torch.count_nonzero(acc[1]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,compiled", [(12, True), (16, False)])
+def test_p2p_kernel_window_degree(degree, compiled):
+    """Degree 12 (the default smoothing's fit) runs the instantiation
+    with the degree compiled in; another degree the run-time one."""
+    from shenqi_tpu_torch.ops.p2p import kernel_instantiation
+    dev = _card()
+    w = _window(dev, degree)
+    for want_pot in (False, True):
+        inst = kernel_instantiation(w, want_pot)
+        assert (inst == "degree 12 compiled in") == compiled, inst
+        _check(*_inputs(32, 32, 1024, degree), 32, want_pot, dev, w=w)

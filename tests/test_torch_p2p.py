@@ -12,6 +12,7 @@ from shenqi_tpu.ops.pallas_p2p import p2p_blocked as j_p2p
 
 from shenqi_tpu_torch.convert import window_from_numpy
 from shenqi_tpu_torch.ops.p2p import (p2p_blocked, p2p_blocked_reference,
+                                      p2p_flops_outside_window,
                                       p2p_flops_per_pair)
 from tests.test_pallas_p2p import _reference
 
@@ -55,12 +56,38 @@ def windows():
                                  float(jw.xmax), device="cpu")
 
 
-@pytest.mark.parametrize("blk", [32, 128])
+def _padding(sm, case):
+    """The padding layouts the CUDA kernel's chunk skip meets: a block
+    of all-padding lanes, and live lanes only as a prefix of each block
+    (as the stencil packs them) with whole padding chunks after it."""
+    sm = sm.copy()
+    if case == "all_padding":
+        sm[1] = 0.0
+    elif case == "prefix":
+        for b, live in enumerate((40, 300, 1)):
+            sm[b, live:] = 0.0
+    return sm
+
+
+# (case, blk, S, window degree; None: the default fit's 12)
+CASES = [("random", 32, 1024, None), ("random", 128, 1024, None),
+         ("all_padding", 32, 1024, None), ("prefix", 32, 1024, None),
+         ("random", 1, 2048, None), ("random", 32, 1024, 16)]
+
+
+@pytest.mark.parametrize("case,blk,S,degree", CASES)
 @pytest.mark.parametrize("want_pot", [True, False])
-def test_reference_matches_pallas_kernel(windows, blk, want_pot):
+def test_reference_matches_pallas_kernel(windows, case, blk, S, degree,
+                                         want_pot):
     jw, tw = windows
-    nb, S = 3, 1024
+    if degree is not None:
+        jw = j_window(1.5, degree=degree)
+        tw = window_from_numpy(np.asarray(jw.cf), np.asarray(jw.cp),
+                               float(jw.xmax), device="cpu")
+        assert tw.cf.shape[0] == degree + 1
+    nb = 3
     tgt, src, sm = _inputs(nb, blk, S, blk + want_pot)
+    sm = _padding(sm, case)
     jacc, jpot = j_p2p(jnp.asarray(tgt), jnp.asarray(src), jnp.asarray(sm),
                        BOX, SOFT, CELL, jw, G, interpret=True,
                        want_pot=want_pot, sch=512, blk=blk)
@@ -70,6 +97,8 @@ def test_reference_matches_pallas_kernel(windows, blk, want_pot):
     jacc = np.asarray(jacc)
     scale = np.abs(jacc).max()
     assert np.abs(tacc.numpy() - jacc).max() < 2e-4 * scale
+    if case == "all_padding":
+        assert not tacc[1].any() and not np.any(jacc[1])
     if want_pot:
         jpot = np.asarray(jpot)
         assert np.abs(tpot.numpy() - jpot).max() < \
@@ -117,7 +146,8 @@ def test_cpu_wrapper_takes_plain_version_without_launching(windows):
     before = p2p_blocked.launches
     p2p_blocked(_t(tgt), _t(src), _t(sm), BOX, SOFT, CELL, tw, G, blk=32)
     assert p2p_blocked.launches == before
-    assert p2p_flops_per_pair(12) < p2p_flops_per_pair(12, 12, True)
+    assert (p2p_flops_outside_window() < p2p_flops_per_pair(12)
+            < p2p_flops_per_pair(12, 12, True))
 
 
 @pytest.mark.parametrize("poly", [True, False])
