@@ -22,16 +22,31 @@ BUDGET_S for the whole run, the kernel build included:
           against the run-time-degree kernel
   parity  the slice at 32^3, mesh 64, 2 steps, once through the kernel
           and once through the plain version; trajectory limits of
-          tests/test_torch_simulation.py
+          tests/test_torch_simulation.py; FOF labels of a 32^3 clustered
+          state with halos on the card (with the pairs within b kept,
+          and with the pass run again each iteration) and through the
+          CPU path, equal
   slice   the main path: 128^3 clustered particles, box 50000, mesh 256,
           stencil engine, Simulation.from_arrays(device="cuda").run(3);
           kernel launches counted per step, stage times per step
+  cli     the two CLIs as a user runs them, at 128^3 (box 128000 kpc/h,
+          dm-small's cosmology, an analytic Eisenstein-Hu table):
+          genic_main, gadget_main RestartFlag 4 (P(k) of the ICs), 2 (a
+          run to a = 0.11 with snapshot, FOF and the default random
+          offset and HCI) and 3 (FOF of PART_000, and of a clustered
+          snapshot with halos); stage times, kernel launches per force
+          pass, FOF and I/O rates, FOF's peak device memory, and the
+          checks of each output; every launch shape the run gave the
+          pair kernel against the plain version, a second launch's bits
+          and its bound, as in `kernel`
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
-It ends with a `kernels:` line, the JSON kernel table, the card's name
-and power limit, and the run's result as one JSON object.  It imports
+It ends with a `kernels:` line (each main path's launches, `cli` and
+`slice`, with the row of its largest launch shape), the JSON kernel
+table (the `cli` run's launches and largest shape), the card's name and
+power limit, and the run's result as one JSON object.  It imports
 neither JAX nor the JAX package, and exits non-zero if any phase fails,
 if the budget runs out, if no card is present (without the rehearsal
 flag), or if the port is not beside it.
@@ -110,6 +125,143 @@ def _clustered(npart_side, box, seed=181170):
     return pos % box
 
 
+def _with_halos(pos, box, seed=181170, frac=0.25):
+    """`_clustered` positions with compact halos added: at b = 0.2 mean
+    separations the Zel'dovich state alone links almost nothing (1.05
+    links per particle and no 32-member group at 32^3 and 64^3), so a
+    quarter of the particles, chosen from the seed, are moved into
+    Gaussian clumps of 32-1024 members (radius 0.15 mean separations)
+    for FOF to find."""
+    rng = np.random.RandomState(seed + 1)
+    n = len(pos)
+    sep = box / np.cbrt(n)
+    pos = pos.copy()
+    idx = rng.permutation(n)[:int(frac * n)]
+    sizes = np.minimum((32 * rng.pareto(1.0, len(idx) // 32 + 1) + 32)
+                       .astype(np.int64), 1024)
+    ends = np.cumsum(sizes)
+    sizes = sizes[:np.searchsorted(ends, len(idx))]
+    cen = rng.uniform(0, box, (len(sizes), 3))
+    k = min(int(sizes.sum()), len(idx))
+    which = np.repeat(np.arange(len(sizes)), sizes)[:k]
+    pos[idx[:k]] = cen[which] + rng.normal(0, 0.15 * sep, (k, 3))
+    return pos % box
+
+
+# dm-small's cosmology (validation/dm_small.py:24-42) with an analytic
+# Eisenstein-Hu table in place of its CLASS one (WhichSpectrum 2, Sigma8
+# -1, InputPowerRedshift 0: the table's z = 0 amplitude is grown back to
+# the ICs, ROADMAP A.4); tests/test_torch_cli.py and
+# tests/test_torch_imports.py write their paramfiles from these too
+_GENIC = """
+OutputDir = {out}/IC
+FileBase = IC
+Ngrid = {ng}
+BoxSize = {box}
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+HubbleParam = 0.7
+ProduceGas = 0
+Redshift = 9
+WhichSpectrum = 2
+FileWithInputSpectrum = {pk}
+Sigma8 = -1
+InputPowerRedshift = 0
+DifferentTransferFunctions = 0
+UsePeculiarVelocity = 1
+Seed = 181170
+UnitaryAmplitude = 1
+"""
+
+# everything else at its default: the random offset (8 cells) and HCI
+# are on; hierarchical gravity (the default) is not ported yet
+_GADGET = """
+InitCondFile = {ic}
+OutputDir = {out}
+OutputList = {a}
+TimeMax = {a}
+Omega0 = 0.288
+MassiveNuLinRespOn = 0
+HydroOn = 0
+CoolingOn = 0
+StarformationOn = 0
+BlackHoleOn = 0
+MetalReturnOn = 0
+WindOn = 0
+SnapshotWithFOF = {fof}
+SplitGravityTimestepsOn = 0
+Nmesh = {nmesh}
+"""
+
+
+def _dm_small_cosmology():
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.utils.units import default_units
+    cp = Cosmology(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
+                   HubbleParam=0.7, RadiationOn=1)
+    cp.init(0.1, default_units())
+    return cp
+
+
+def _sigma8(power):
+    """Top-hat sigma(8 Mpc/h) of an InputPower (either package's) at its
+    current norm, integrated from k = 1e-5 h/Mpc: InputPower.normalize's
+    own integral (_tophat_sigma) keeps the reference's k-grid slip
+    (ROADMAP C.4), so the tables here are normalized by this one."""
+    R = 8.0 * power.mpc_scale
+    k = np.logspace(np.log10(1e-5 / power.mpc_scale), np.log10(500.0 / R),
+                    8192)
+    kr = R * k
+    w = 3 * (np.sin(kr) / kr ** 3 - np.cos(kr) / kr ** 2)
+    return np.sqrt(np.trapezoid(4 * np.pi / (2 * np.pi) ** 3 * k * k
+                                * (w * power.delta_spec(k)) ** 2, k))
+
+
+def _eh_table(path):
+    """Write k [h/Mpc], P [(Mpc/h)^3] of the analytic EH spectrum at
+    z = 0 in dm-small's cosmology, normalized to sigma8 = 0.8; returns
+    it."""
+    from shenqi_tpu_torch.cosmology.power import InputPower
+    from shenqi_tpu_torch.utils.units import default_units
+    power = InputPower.analytic_eh(_dm_small_cosmology(),
+                                   default_units().UnitLength_in_cm)
+    power.norm = 0.8 / _sigma8(power)
+    kt = np.logspace(-4, 2, 600)
+    table = np.c_[kt, (power.delta_spec(kt / power.mpc_scale)
+                       / power.mpc_scale ** 1.5) ** 2]
+    np.savetxt(path, table)
+    return table
+
+
+def _cpu_steps(path):
+    """[(a, {stage: seconds})] per step from a cpu.txt."""
+    steps = []
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"Step \d+, Time: (\S+),", line)
+            if m:
+                steps.append((float(m.group(1)), {}))
+            elif steps and line.startswith("    "):
+                name, sec = line.split()[:2]
+                steps[-1][1][name] = float(sec)
+    return steps
+
+
+def _fof_line(fs):
+    """One FOF call's stages and counts (fof.FOFStats)."""
+    it = max(fs.iterations, 1)
+    kept = ("more than fof._MAX_LINKS links: the pass ran again in each "
+            "iteration" if fs.repass else f"{fs.links} links kept")
+    return (f"FOF tree {fs.tree_s:.3f} s, traversal {fs.traverse_s:.3f} s "
+            f"({fs.blocks} blocks, {fs.leaves} leaves), pair pass "
+            f"{fs.pairs_s:.3f} s ({fs.pair_lanes} pair lanes, {kept}), "
+            f"{fs.iterations} iterations {fs.iterate_s:.3f} s "
+            f"({1e3 * fs.iterate_s / it:.2f} ms each), {fs.syncs} host "
+            f"syncs, secondary attach {fs.attach_s:.3f} s, compile_groups "
+            f"{fs.compile_s:.3f} s")
+
+
 def _run(cmd):
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
@@ -130,6 +282,9 @@ class Smoke:
         self.n_kernel, self.n_slice, self.mesh_slice = (
             (32, 32, 64) if rehearsal else (128, 128, 256))
         self.n_parity, self.mesh_parity = (8, 16) if rehearsal else (32, 64)
+        self.n_cli = 16 if rehearsal else 128
+        self.cli_launches = 0
+        self.cli_row = {}
 
     # ---------------------------------------------------------------- env
     def env(self):
@@ -433,6 +588,37 @@ class Smoke:
         if not (dpos < 2e-5 and outlier.mean() < 5e-3 and tb_ok
                 and sk.times.ti_current == sp.times.ti_current):
             raise SmokeFailure("kernel path and plain path disagree")
+        # FOF labels of one clustered state with halos, on this run's
+        # device (with the pairs within b kept, and with the pass run
+        # again each iteration, as past fof._MAX_LINKS) and through the
+        # port's CPU path: integers, so equal
+        from shenqi_tpu_torch.core.particles import float_to_ipos
+        from shenqi_tpu_torch.fof import fof as fofm
+        n1, box = self.n_parity, 50000.0 * self.n_parity / 128
+        pos = _with_halos(_clustered(n1, box), box)
+        b = 0.2 * box / n1
+        labels, secs, keep = [], [], fofm._MAX_LINKS
+        for dev, max_links in ((self.dev, keep), (self.dev, 0),
+                               (torch.device("cpu"), keep)):
+            t = time.perf_counter()
+            alive = torch.ones(len(pos), dtype=torch.bool, device=dev)
+            fofm._MAX_LINKS = max_links
+            try:
+                labels.append(fofm.fof_label(
+                    float_to_ipos(pos, box, device=dev), alive, b,
+                    box).cpu())
+            finally:
+                fofm._MAX_LINKS = keep
+            secs.append(time.perf_counter() - t)
+        ngrp = int((torch.bincount(labels[0]) >= 32).sum())
+        same = all(torch.equal(labels[0], x) for x in labels[1:])
+        say("parity", f"FOF labels of {len(pos)} clustered particles with "
+            f"halos ({ngrp} groups of 32 or more): {self.dev} {secs[0]:.2f}"
+            f" s, {self.dev} with the pass each iteration {secs[1]:.2f} s, "
+            f"CPU {secs[2]:.2f} s, identical {same}")
+        if not (same and ngrp > 0):
+            raise SmokeFailure("FOF labels differ between the card, the "
+                               "card's repeated pass and the CPU path")
 
     # -------------------------------------------------------------- slice
     def _sync(self):
@@ -532,6 +718,229 @@ class Smoke:
             raise SmokeFailure("slice results are not sane")
         self.sim = sim
 
+    def cli(self):
+        """The main path as its users run it: genic_main, then gadget_main
+        RestartFlag 4, 2 and 3, on paramfiles written into a temporary
+        directory that is removed at the end."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_cli_")
+        try:
+            self._cli(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _cli(self, tmp):
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch import simulation
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.gravity import stencil as st
+        from shenqi_tpu_torch.io.snapshot import (SnapshotHeader,
+                                                  read_snapshot,
+                                                  write_snapshot)
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        ng, nmesh, box = self.n_cli, 2 * self.n_cli, 1000.0 * self.n_cli
+        pk = os.path.join(tmp, "pk_eh.txt")
+        table = _eh_table(pk)
+        out = os.path.join(tmp, "output")
+        gp, pp = os.path.join(tmp, "p.genic"), os.path.join(tmp, "p.gadget")
+        with open(gp, "w") as f:
+            f.write(_GENIC.format(out=tmp, ng=ng, box=box, pk=pk))
+        with open(pp, "w") as f:
+            f.write(_GADGET.format(ic=os.path.join(tmp, "IC", "IC"),
+                                   out=out, a=0.11, fof=1, nmesh=nmesh))
+        dev = "cpu" if self.rehearsal else None      # None: the card
+
+        # genic_main, its stages timed by wrapping what it calls (the
+        # displacement fields end with a copy to the host: synchronous)
+        t = time.perf_counter()
+        with _Wrap(genic_main, "gaussian_field") as field, \
+                _Wrap(genic_main, "displacement_fields") as disp:
+            ic = genic_main.run_genic(gp, device=dev)
+        t_all = time.perf_counter() - t
+        write_s = time.perf_counter() - disp.t_end
+        say("cli", f"genic_main Ngrid {ng} ({ng ** 3} particles), box "
+            f"{box:.0f} kpc/h, mesh {2 * ng}: {t_all:.2f} s = field "
+            f"{field.seconds:.2f} s + displacement fields (host tables, "
+            f"FFTs and readout on the card) {disp.seconds:.3f} s + bigfile"
+            f" write {write_s:.2f} s + set-up")
+        hdr, blocks = read_snapshot(ic)
+        ids = np.sort(blocks[1]["ID"])
+        icpos = blocks[1]["Position"]
+        if not (len(ids) == ng ** 3 and np.array_equal(
+                ids, np.arange(1, ng ** 3 + 1, dtype=np.uint64))):
+            raise SmokeFailure("IC IDs are not a permutation of 1..N")
+        if not (np.isfinite(icpos).all() and (icpos >= 0).all()
+                and (icpos < box).all()):
+            raise SmokeFailure("IC positions outside [0, box)")
+        # internal velocities a * v_pec, as gadget_main reads them
+        p0 = (blocks[1]["Velocity"].astype(np.float64) * hdr.Time
+              * hdr.MassTable[1]).sum(0)
+        del blocks, icpos, ids
+
+        # RestartFlag 4: P(k) of the ICs against the table at a = 0.1
+        t = time.perf_counter()
+        fn = gadget_main.run_gadget(pp, 4, device=dev)
+        t4 = time.perf_counter() - t
+        d = np.loadtxt(fn)
+        knyq = np.pi * ng / (box / 1000.0)
+        low = d[:, 0] < knyq / 4
+        want = np.interp(np.log(d[low, 0]), np.log(table[:, 0]), table[:, 1])
+        ratio = float((d[low, 2] * d[low, 3]).sum()
+                      / (d[low, 2] * want).sum())
+        say("cli", f"gadget_main RestartFlag 4 (P(k) of the ICs, mesh "
+            f"{nmesh}): {t4:.2f} s; P(z=0) over the {int(low.sum())} bins "
+            f"below a quarter of the particle Nyquist k ({knyq / 4:.3f} "
+            f"h/Mpc), mode-weighted, / the table = {ratio:.4f} (limit "
+            f"|1 - ratio| < 0.08, validation/dm_small.py's at a = 0.1)")
+        if not abs(1 - ratio) < 0.08:
+            raise SmokeFailure(f"IC P(k) off the table by {ratio - 1:+.3f}")
+
+        # RestartFlag 2: the run, counting the pair kernel per force pass
+        # and keeping one example of each launch shape it gives the
+        # kernel, for the comparison with the plain version after it
+        passes = []
+        shapes = {}
+        real = simulation.Simulation._compute_tree
+
+        def counted(sim_, first_step):
+            before = p2p_blocked.launches
+            real(sim_, first_step)
+            passes.append(p2p_blocked.launches - before)
+
+        def record(fn_, *a, **kw):
+            key = (a[2].shape[0], kw["blk"], a[2].shape[1], kw["want_pot"])
+            shapes.setdefault(key, [0, a, dict(kw)])[0] += 1
+            return fn_(*a, **kw)
+
+        simulation.Simulation._compute_tree = counted
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        t = time.perf_counter()
+        try:
+            with _Wrap(gadget_main, "write_snapshot", keep=True) as snap, \
+                    _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                    _Wrap(st, "p2p_blocked", through=record):
+                sim = gadget_main.run_gadget(pp, 2, device=dev)
+        finally:
+            simulation.Simulation._compute_tree = real
+        t2 = time.perf_counter() - t
+        self.cli_launches = p2p_blocked.launches
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        # cpu.txt holds each finished step; the last loop pass (the
+        # final forces, the snapshot and FOF) ends without a step record,
+        # so its stages come from the run's timer
+        steps = _cpu_steps(os.path.join(out, "cpu.txt"))
+        steps.append((sim.atime(), dict(sim.walltime.step_acc)))
+        for i, (a, stages) in enumerate(steps):
+            say("cli", f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in sorted(stages.items())))
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        (_, (spath, shdr, sblocks)), = snap.calls
+        nbytes = sum(v.nbytes for b_ in sblocks.values() for v in b_.values())
+        fs = fofw.calls[0][0].stats
+        say("cli", f"gadget_main RestartFlag 2 to a={sim.atime():.5f}: "
+            f"{t2:.2f} s, {len(steps) - 1} steps, {len(passes)} force "
+            f"passes; stage totals " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in tot.items())
+            + f" (Misc holds the kicks); p2p_blocked launches "
+            f"{self.cli_launches} ({', '.join(map(str, passes))} per pass);"
+            f" peak device memory {mem:.2f} GiB; snapshot write "
+            f"{nbytes / 1e6:.1f} MB in {snap.seconds:.3f} s = "
+            f"{nbytes / 1e6 / snap.seconds:.1f} MB/s; " + _fof_line(fs))
+        del sblocks, snap
+        for f_ in ("PART_000", "PIG_000", "energy.txt", "cpu.txt",
+                   "powerspectrum-0.1100.txt"):
+            if not os.path.exists(os.path.join(out, f_)):
+                raise SmokeFailure(f"gadget_main wrote no {f_}")
+        if abs(sim.atime() - 0.11) > 1e-6:
+            raise SmokeFailure(f"the run ended at a={sim.atime()}")
+        if not self.rehearsal and (not passes or min(passes) <= 0):
+            raise SmokeFailure("a force pass ran without the pair kernel")
+        p = sim.particles
+        mv = p.mass.double()[:, None] * p.vel.double()
+        dp = float(torch.linalg.norm(mv.sum(0).cpu()
+                                     - torch.from_numpy(p0)))
+        smv = float(torch.linalg.norm(mv, dim=1).sum())
+        say("cli", f"|dP| / sum m|v| = {dp / smv:.3e} (limit 1e-3)")
+        if not dp < 1e-3 * smv:
+            raise SmokeFailure("momentum not conserved in the CLI run")
+        del sim, p, mv
+        self.cli_row = self._check_shapes(shapes)
+        del shapes
+
+        # RestartFlag 3 on PART_000, then on a clustered state with halos
+        for snap_, label in ((0, "PART_000"), (7, "clustered with halos")):
+            if snap_ == 7:
+                n1 = self.n_slice
+                cbox = 50000.0 * n1 / 128
+                cpos = _with_halos(_clustered(n1, cbox), cbox)
+                cp = _dm_small_cosmology()
+                m = cp.Omega0 * cp.RhoCrit * cbox ** 3 / len(cpos)
+                write_snapshot(os.path.join(out, "PART_007"), SnapshotHeader(
+                    TotNumPart=np.array([0, len(cpos), 0, 0, 0, 0],
+                                        np.uint64),
+                    MassTable=np.zeros(6), Time=0.11, BoxSize=cbox,
+                    Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
+                    HubbleParam=0.7, TimeIC=0.1),
+                    {1: {"Position": cpos,
+                         "Velocity": np.zeros((len(cpos), 3), np.float32),
+                         "Mass": np.full(len(cpos), m, np.float32),
+                         "ID": np.arange(1, len(cpos) + 1,
+                                         dtype=np.uint64)}})
+                del cpos
+            t = time.perf_counter()
+            with _Wrap(gadget_main, "fof", peak=not self.rehearsal) as fofw:
+                g = gadget_main.run_gadget(pp, 3, snap_, device=dev)
+            t3 = time.perf_counter() - t
+            say("cli", f"gadget_main RestartFlag 3 on {label}: {t3:.2f} s, "
+                f"{g.ngroups} groups, largest {int(g.lengths[:1].sum())}; "
+                f"FOF's peak device memory above what it was given "
+                + (f"{fofw.peak / 2 ** 20:.1f} MiB; " if not self.rehearsal
+                   else "not measured on the CPU; ") + _fof_line(g.stats))
+            if not os.path.isdir(os.path.join(out, f"PIG_{snap_:03d}")):
+                raise SmokeFailure(f"RestartFlag 3 wrote no PIG_{snap_:03d}")
+            if int(g.lengths.sum()) != int((g.group_id > 0).sum()):
+                raise SmokeFailure("group lengths do not sum to the grouped "
+                                   "particles")
+        if g.ngroups < 1:
+            raise SmokeFailure("FOF found no group in the clustered state")
+
+    def _check_shapes(self, shapes):
+        """Every launch shape (nb, blk, S, want_pot) the CLI run gave the
+        pair kernel, on the inputs of one of its launches: against the
+        plain version, a second launch's bits, and its bound.  Returns
+        the row of the shape with the most pair lanes."""
+        from shenqi_tpu_torch.ops.p2p import (p2p_blocked,
+                                              p2p_blocked_reference)
+        rows = []
+        for key in sorted(shapes):
+            n, args, kw = shapes[key]
+            ins, rest = args[:3], args[3:]
+            w = rest[3]
+            r = self._compare(p2p_blocked, p2p_blocked_reference, ins, rest,
+                              kw,
+                              w.cf.shape[0], w.cp.shape[0],
+                              self._in_window(ins, rest))
+            say("cli", f"x{n} in the run: p2p_blocked " + " ".join(
+                f"{k}={v}" for k, v in r.items())
+                + f"; {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+            if not r["rel_err"] < 2e-4:
+                raise SmokeFailure(f"p2p_blocked disagrees with its plain "
+                                   f"version at a shape of the CLI run: {r}")
+            if not r["repeatable"]:
+                raise SmokeFailure(f"p2p_blocked gave other bits on a "
+                                   f"second launch at a shape of the CLI "
+                                   f"run: {r}")
+            rows.append((key[0] * key[1] * key[2], r))
+        if not rows:
+            raise SmokeFailure("the CLI run launched no pair kernel")
+        return max(rows, key=lambda x: x[0])[1]
+
     def profile(self):
         """Where the time goes in one full force pass at the slice's size
         (PM + short range for every particle, the work of a step in
@@ -606,20 +1015,67 @@ class Smoke:
 
     # ------------------------------------------------------------- report
     def report(self):
-        r = self.kernel_row
-        row = {"name": "p2p_blocked", "route": "cuda",
-               "source": "shenqi_tpu_torch/csrc/p2p.cu",
-               "replaces": "shenqi_tpu/ops/pallas_p2p.py:153",
-               "launches": self.launches, "max_abs_err": r["max_abs_err"],
-               "ms": r["ms"], "plain_ms": r["plain_ms"],
-               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": None}
-        print("kernels: " + json.dumps([{
-            "name": "p2p_blocked", "launches": self.launches,
-            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"]}]),
+        """The JSON kernel row from the CLI run (its launches, and the
+        numbers of its largest launch shape), and on the `kernels:` line
+        each main path's launches with the row of its largest shape."""
+        def entry(r, launches):
+            return {"name": "p2p_blocked", "route": "cuda",
+                    "source": "shenqi_tpu_torch/csrc/p2p.cu",
+                    "replaces": "shenqi_tpu/ops/pallas_p2p.py:153",
+                    "launches": launches, "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": None}
+        print("kernels: " + json.dumps([
+            dict(entry(r, n), path=path, rel_err=r["rel_err"],
+                 shape=[r["nb"], r["blk"], r["S"], r["want_pot"]])
+            for path, r, n in (("cli", self.cli_row, self.cli_launches),
+                               ("slice", self.kernel_row, self.launches))]),
             flush=True)
-        print(json.dumps({"kernels": [row]}), flush=True)
+        print(json.dumps({"kernels": [entry(self.cli_row,
+                                            self.cli_launches)]}),
+              flush=True)
         print(self.card, flush=True)
+
+
+class _Wrap:
+    """Within a `with` block, `mod.name` is replaced by a wrapper that
+    sums the seconds of its calls (`seconds`) and notes when the last
+    one returned (`t_end`); with `keep`, it keeps each call's (result,
+    args) in `calls`; with `peak`, the most device memory a call
+    allocated above what was allocated when it began (`peak`, bytes);
+    with `through`, it calls through(fn, *args, **kw) in place of
+    fn(*args, **kw)."""
+
+    def __init__(self, mod, name, through=None, keep=False, peak=False):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.through, self.keep, self.track = through, keep, peak
+        self.seconds, self.t_end, self.calls, self.peak = 0.0, 0.0, [], 0
+
+    def __call__(self, *args, **kw):
+        import torch
+        if self.track:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = (self.through(self.fn, *args, **kw) if self.through
+               else self.fn(*args, **kw))
+        self.t_end = time.perf_counter()
+        self.seconds += self.t_end - t
+        if self.track:
+            self.peak = max(self.peak,
+                            torch.cuda.max_memory_allocated() - base)
+        if self.keep:
+            self.calls.append((out, args))
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+        return False
 
 
 class _StageClock:
@@ -712,7 +1168,7 @@ def main(argv) -> int:
         return 1
     smoke = Smoke(rehearsal)
     try:
-        for phase in ("env", "build", "kernel", "parity", "slice",
+        for phase in ("env", "build", "kernel", "parity", "slice", "cli",
                       "profile"):
             getattr(smoke, phase)()
             if not rehearsal:

@@ -1,0 +1,507 @@
+"""MP-Gadget equivalent CLI (gadget/main.cpp analog), the single-device
+DM path of shenqi_tpu/cli/gadget_main.py for the port.
+
+Usage:
+  python -m shenqi_tpu_torch.cli.gadget_main paramfile [RestartFlag] [SnapNum] [--device cpu]
+
+RestartFlag semantics match the reference (gadget/main.cpp:51-119):
+  (none)/2 : start from the IC file (or snapshot SnapNum if given)
+  1        : restart from the last stored snapshot
+  3        : run FOF on snapshot SnapNum and write a halo catalog
+  4        : compute and write the power spectrum of snapshot SnapNum
+
+The run is on the card unless `--device cpu` is given.  What this slice
+does not port is refused with the ROADMAP item that brings it: gas,
+--mesh, the neutrino linear response, lightcones, lensing planes,
+RestartFlag 99 and hierarchical gravity (SplitGravityTimestepsOn, on by
+default: a paramfile for this slice sets it to 0).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .genic_main import _pop_device
+from .params import gadget_params
+from ..utils.units import get_unitsystem
+from ..utils.config import build_output_list
+from ..utils.constants import CM_PER_MPC
+from ..utils.hci import HCI
+from ..utils.walltime import Walltime
+from ..utils.stats import energy_statistics_fast
+from ..cosmology.background import Cosmology
+from ..core.timeline import Timeline
+from ..core.integrate import TimestepParams
+from ..core.particles import (ParticleData, float_to_ipos, u32,
+                              u32_numpy_to_i32)
+from ..io.snapshot import SnapshotHeader, read_snapshot, write_snapshot
+from ..io.fofio import save_fof, save_fof_particles
+from ..simulation import Simulation
+from ..fof.fof import fof
+
+
+def load_cosmology(ps, hdr: SnapshotHeader, time_begin, units):
+    def pick(par, hval):
+        v = ps.get_double(par)
+        return hval if v < 0 else v
+    cp = Cosmology(
+        Omega0=ps.get_double("Omega0"),
+        OmegaLambda=pick("OmegaLambda", hdr.OmegaLambda),
+        OmegaBaryon=pick("OmegaBaryon", hdr.OmegaBaryon),
+        HubbleParam=pick("HubbleParam", hdr.HubbleParam),
+        CMBTemperature=ps.get_double("CMBTemperature"),
+        RadiationOn=ps.get_int("RadiationOn"),
+        Omega_fld=ps.get_double("Omega_fld"),
+        w0_fld=ps.get_double("w0_fld"),
+        wa_fld=ps.get_double("wa_fld"),
+        Omega_ur=ps.get_double("Omega_ur"),
+        MNu=(ps.get_double("MNue"), ps.get_double("MNum"),
+             ps.get_double("MNut")),
+        MassiveNuLinRespOn=ps.get_int("MassiveNuLinRespOn"))
+    cp.init(time_begin, units)
+    return cp
+
+
+def _read_particles(snap_path):
+    hdr, blocks = read_snapshot(snap_path)
+    pos_l, vel_l, ids_l, mass_l, type_l = [], [], [], [], []
+    for t, props in sorted(blocks.items()):
+        pos = props["Position"]
+        n = len(pos)
+        pos_l.append(pos)
+        vel = props["Velocity"].astype(np.float64)
+        if hdr.UsePeculiarVelocity:
+            vel = vel * hdr.Time   # internal v = a * v_pec
+        vel_l.append(vel)
+        ids_l.append(props.get("ID", np.arange(n, dtype=np.uint64)))
+        if "Mass" in props:
+            mass_l.append(props["Mass"].astype(np.float64))
+        else:
+            mass_l.append(np.full(n, hdr.MassTable[t]))
+        type_l.append(np.full(n, t, dtype=np.int8))
+    return hdr, (np.concatenate(pos_l), np.concatenate(vel_l),
+                 np.concatenate(ids_l), np.concatenate(mass_l),
+                 np.concatenate(type_l))
+
+
+def _init_checks(pos, ids, mass, cp, boxsize):
+    """IC validation (init.cpp:88-115 analogs): unique IDs, positions
+    inside the box, total matter mass consistent with Omega0."""
+    if len(np.unique(ids)) != len(ids):
+        raise ValueError("duplicate particle IDs in the ICs "
+                         "(domain_test_id_uniqueness)")
+    if np.any(pos < 0) or np.any(pos > boxsize):
+        raise ValueError("particle positions outside the box "
+                         "(check_positions)")
+    masstot = float(np.sum(mass))
+    omega = masstot / boxsize ** 3 / cp.RhoCrit
+    omega_exp = cp.Omega0
+    if cp.MassiveNuLinRespOn:
+        omega_exp -= cp.ONu.get_omega_nu(1.0)
+    if abs(omega - omega_exp) > 5e-2 * omega_exp:
+        # the reference endruns here; tolerate synthetic test
+        # snapshots but make the inconsistency loud
+        print(f"WARNING: IC mass inconsistent with Omega0: particles "
+              f"give Omega={omega:.4g}, expected {omega_exp:.4g} "
+              f"(check_omega)")
+
+
+def _resume_snap_counter(outdir):
+    """Fallback snapshot counter: one past the last snapshot on
+    record, so unplanned (HCI/off-OutputList) dumps never overwrite
+    an existing PART_* after a RestartFlag-1 resume."""
+    try:
+        with open(os.path.join(outdir, "LastSnapNum.txt")) as f:
+            return int(f.read().strip()) + 1
+    except (OSError, ValueError):
+        return 0
+
+
+def _snap_index(ps, a, fallback):
+    """Snapshot number = position of `a` in the FULL OutputList, so a run
+    resumed from PART_k keeps writing PART_{k+1}... (timebinmgr.cpp
+    setup_sync_points + checkpoint.cpp find_last_snapnum).  Falls back
+    to the sequential counter when `a` is not an OutputList entry."""
+    try:
+        times = sorted(set(build_output_list(
+            ps.get_string("OutputList"))))
+    except Exception:
+        return fallback
+    if not times:
+        return fallback
+    ls = np.log(times)
+    i = int(np.argmin(np.abs(ls - np.log(a))))
+    if abs(ls[i] - np.log(a)) < 1e-6:
+        return i
+    return fallback
+
+
+def _write_power(fn, kk, pk, nm, d1):
+    """powerspectrum-%.4f.txt (gravpm.cpp:110-118 convention)."""
+    with open(fn, "w") as f:
+        f.write("# in Mpc/h Units \n")
+        f.write(f"# D1 = {d1:g} \n")
+        f.write("# k P N P(z=0)\n")
+        for j in range(len(kk)):
+            if nm[j] > 0:
+                f.write(f"{kk[j]:g} {pk[j]:g} {int(nm[j])} "
+                        f"{pk[j] / d1 ** 2:g}\n")
+
+
+def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
+    """What the run path needs that this slice has not ported (FOF and
+    P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
+    first two)."""
+    refuse = [
+        (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
+        (bool(mesh_devices), "--mesh (the multi-device slab run)", "A.9")]
+    if restart_flag not in (3, 4):
+        refuse += [
+            (has_gas, "gas particles with HydroOn", "A.7"),
+            (ps.get_int("MassiveNuLinRespOn"),
+             "MassiveNuLinRespOn (the neutrino linear response)", "A.6"),
+            (ps.get_int("LightconeOn"), "LightconeOn", "A.8"),
+            (ps.get_int("WritePlaneOn"), "WritePlaneOn (lensing planes)",
+             "A.8"),
+            (ps.get_int("SplitGravityTimestepsOn")
+             or ps.get_int("HierarchicalGravity"),
+             "hierarchical gravity (SplitGravityTimestepsOn / "
+             "HierarchicalGravity = 1; set SplitGravityTimestepsOn = 0)",
+             "A.5"),
+            (ps.get_enum("ShortRangeForceWindowType") != 0,
+             "ShortRangeForceWindowType erfc", "A.12")]
+    for cond, what, item in refuse:
+        if cond:
+            raise NotImplementedError(
+                f"gadget_main: {what} is not ported yet (ROADMAP {item})")
+
+
+class _DeviceWalltime(Walltime):
+    """The reference's stage timers with a device synchronize before
+    each reading, so a stage is charged its own device work."""
+
+    def __init__(self, device):
+        super().__init__()
+        self._device = device
+
+    def measure(self, name: str) -> float:
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return super().measure(name)
+
+
+def _particles_from_arrays(pos, vel, mass, ids, ptype, boxsize, dev):
+    """A ParticleData (all rows alive) from snapshot arrays."""
+    n = len(pos)
+    ids = ids.astype(np.uint64)
+    lo = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (ids >> np.uint64(32)).astype(np.uint32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return ParticleData.zeros(n, device=dev).replace(
+        ipos=float_to_ipos(pos, boxsize, device=dev),
+        vel=t(vel.astype(np.float32)), mass=t(mass.astype(np.float32)),
+        ptype=t(ptype), mask=torch.ones(n, dtype=torch.bool, device=dev),
+        id_lo=t(u32_numpy_to_i32(lo)), id_hi=t(u32_numpy_to_i32(hi)))
+
+
+def _run_fof_snapshot(ps, hdr, outdir, snapnum, pos, vel, mass, ids,
+                      ptype, boxsize, atime, dev):
+    """RestartFlag 3: FOF of a snapshot and its PIG catalogue."""
+    npart_tot = int(sum(hdr.TotNumPart))
+    mean_sep = boxsize / np.cbrt(
+        hdr.TotNumPart[1] if hdr.TotNumPart[1] > 0 else npart_tot)
+    groups = fof(float_to_ipos(pos, boxsize, device=dev),
+                 vel.astype(np.float32), mass.astype(np.float32), ptype,
+                 np.ones(len(pos), bool), boxsize, mean_sep,
+                 linking_length=ps.get_double("FOFHaloLinkingLength"),
+                 min_length=ps.get_int("FOFHaloMinLength"))
+    path = os.path.join(outdir, f"{ps.get_string('FOFFileBase')}"
+                        f"_{max(snapnum, 0):03d}")
+    save_fof(path, groups, hdr, atime)
+    if ps.get_int("FOFSaveParticles"):
+        pd = _particles_from_arrays(pos, vel, mass, ids, ptype, boxsize,
+                                    dev)
+        save_fof_particles(path, groups, pd, boxsize=boxsize, atime=atime)
+    print(f"FOF: {groups.ngroups} groups -> {path}")
+    return groups
+
+
+def _run_power_snapshot(ps, hdr, cp, units, outdir, pos, mass, boxsize,
+                        atime, dev):
+    """RestartFlag 4: the power spectrum of a snapshot (runpower,
+    gadget/main.cpp:106-119)."""
+    from ..gravity.pm import PMConfig, pm_forces, finalize_power
+    nmesh = ps.get_int("Nmesh")
+    if nmesh <= 0:
+        nmesh = 2 * int(round(np.cbrt(sum(hdr.TotNumPart))))
+    cfg = PMConfig(nmesh=nmesh, boxsize=boxsize, G=cp.GravInternal,
+                   asmth=ps.get_double("Asmth"))
+    ipos = float_to_ipos(pos, boxsize, device=dev)
+    _, _, psacc = pm_forces(ipos, torch.from_numpy(
+        mass.astype(np.float32)).to(dev), cfg, want_potential=False)
+    mpc = CM_PER_MPC / units.UnitLength_in_cm
+    kk, pk, nm = finalize_power(psacc, cfg, boxsize / mpc)
+    d1 = 1.0 / cp.growth_factor(1.0, atime)
+    fn = os.path.join(outdir, f"powerspectrum-{atime:.4f}.txt")
+    _write_power(fn, kk, pk, nm, d1)
+    print(f"runpower: wrote {fn}")
+    return fn
+
+
+def run_gadget(paramfile: str, restart_flag: int = 2,
+               snapnum: int = -1, max_steps: int = 10 ** 9,
+               strict: bool = False, mesh_devices: int = 0, device=None):
+    """Run the paramfile's simulation (or its RestartFlag 3/4 analysis)
+    on `device`: CUDA unless the caller asks for the CPU.  Returns the
+    Simulation, the FOFGroups (3) or the power-spectrum path (4)."""
+    dev = resolve_device(device)
+    ps = gadget_params()
+    ps.parse_file(paramfile, strict=strict)
+    outdir = ps.get_string("OutputDir")
+    os.makedirs(outdir, exist_ok=True)
+
+    icfile = ps.get_string("InitCondFile")
+    if restart_flag == 1:
+        with open(os.path.join(outdir, "LastSnapNum.txt")) as f:
+            snapnum = int(f.read().strip())
+    if restart_flag == 1 or snapnum >= 0:
+        icfile = os.path.join(outdir, f"{ps.get_string('SnapshotFileBase')}"
+                              f"_{snapnum:03d}")
+
+    hdr, (pos, vel, ids, mass, ptype) = _read_particles(icfile)
+    has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
+    _refuse_unported(ps, restart_flag, mesh_devices, has_gas)
+    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
+                           hdr.UnitVelocity_in_cm_per_s)
+    atime = hdr.Time
+    cp = load_cosmology(ps, hdr, atime, units)
+    boxsize = hdr.BoxSize
+    _init_checks(pos, ids, mass, cp, boxsize)
+
+    if restart_flag == 3:
+        return _run_fof_snapshot(ps, hdr, outdir, snapnum, pos, vel, mass,
+                                 ids, ptype, boxsize, atime, dev)
+    if restart_flag == 4:
+        return _run_power_snapshot(ps, hdr, cp, units, outdir, pos, mass,
+                                   boxsize, atime, dev)
+
+    outputs = build_output_list(ps.get_string("OutputList"))
+    timeline = Timeline.setup(outputs, atime, ps.get_double("TimeMax"),
+                              ps.get_double("NoSnapshotUntilTime"),
+                              bool(ps.get_int("SnapshotWithFOF")))
+    nmesh = ps.get_int("Nmesh")
+    if nmesh <= 0:
+        nmesh = 2 * int(round(np.cbrt(sum(hdr.TotNumPart))))
+    tsp = TimestepParams(
+        ErrTolIntAccuracy=ps.get_double("ErrTolIntAccuracy"),
+        CourantFac=ps.get_double("CourantFac"),
+        MaxRMSDisplacementFac=ps.get_double("MaxRMSDisplacementFac"),
+        MaxSizeTimestep=ps.get_double("MaxSizeTimestep"),
+        MinSizeTimestep=ps.get_double("MinSizeTimestep"),
+        MaxGasVel=ps.get_double("MaxGasVel"),
+        ForceEqualTimesteps=bool(ps.get_int("ForceEqualTimesteps")),
+        FastParticleType=ps.get_int("FastParticleType"))
+    gravity_kw = dict(
+        asmth=ps.get_double("Asmth"),
+        rcut_cells=ps.get_double("TreeRcut"),
+        err_tol_force_acc=ps.get_double("ErrTolForceAcc"),
+        bh_opening_angle=ps.get_double("BHOpeningAngle"),
+        use_bh=1 if ps.get_int("TreeUseBH") == 1 else 0)
+    # softening: an explicitly set fraction (GravitySoftening,
+    # params.cpp:161, in mean DM separations; spline h = 2.8x that);
+    # otherwise the simulation derives the same 1/30 default itself
+    if ps.is_set("GravitySoftening") or \
+            ps.is_set("FractionalGravitySoftening"):
+        frac = ps.get_double(
+            "GravitySoftening" if ps.is_set("GravitySoftening")
+            else "FractionalGravitySoftening")
+        gravity_kw["softening"] = (
+            2.8 * frac * boxsize / np.cbrt(max(len(pos), 1)))
+
+    sim = Simulation.from_arrays(pos, vel, mass, ids, cp, boxsize, nmesh,
+                                 timeline, atime, tsp=tsp,
+                                 gravity_kw=gravity_kw, device=dev)
+    sim.resumed = (restart_flag == 1)
+    # anti-correlation box shift, a fraction of a PM cell
+    # (gadget/params.cpp:85, default 8 cells worth over Nmesh)
+    sim.random_offset_frac = (ps.get_double("RandomParticleOffset")
+                              / max(nmesh, 1))
+
+    snap_counter = [_resume_snap_counter(outdir)]
+    base = ps.get_string("SnapshotFileBase")
+
+    def on_snapshot(s, a):
+        # max() keeps numbering monotone when an unplanned (HCI)
+        # dump has consumed an index below this OutputList position
+        snap_counter[0] = max(_snap_index(ps, a, snap_counter[0]),
+                              snap_counter[0])
+        path = os.path.join(outdir, f"{base}_{snap_counter[0]:03d}")
+        p = s.particles
+        maskv = p.mask.cpu().numpy()
+        tys = p.ptype.cpu().numpy()
+        posn = (u32(s.output_ipos()).to(torch.float64)
+                * (boxsize / 2 ** 32)).cpu().numpy()
+        veln = p.vel.cpu().numpy() / a        # peculiar
+        massn = p.mass.cpu().numpy()
+        idsn = p.ids64()
+        blocks = {}
+        totnum = np.zeros(6, dtype=np.uint64)
+        for t in range(6):
+            sel = maskv & (tys == t)
+            if not sel.any():
+                continue
+            totnum[t] = sel.sum()
+            blocks[t] = {"Position": posn[sel], "Velocity": veln[sel],
+                         "Mass": massn[sel], "ID": idsn[sel]}
+        shdr = SnapshotHeader(
+            TotNumPart=totnum,
+            MassTable=np.zeros(6), Time=a, BoxSize=boxsize,
+            Omega0=cp.Omega0, OmegaLambda=cp.OmegaLambda,
+            OmegaBaryon=cp.OmegaBaryon, HubbleParam=cp.HubbleParam,
+            UnitLength_in_cm=units.UnitLength_in_cm,
+            UnitMass_in_g=units.UnitMass_in_g,
+            UnitVelocity_in_cm_per_s=units.UnitVelocity_in_cm_per_s,
+            UsePeculiarVelocity=1, TimeIC=hdr.TimeIC)
+        write_snapshot(path, shdr, blocks)
+        with open(os.path.join(outdir, "LastSnapNum.txt"), "w") as f:
+            f.write(str(snap_counter[0]))
+        if s.power_history:
+            a_p, kk, pk, nm = s.power_history[-1]
+            _write_power(os.path.join(outdir, f"powerspectrum-{a:.4f}.txt"),
+                         kk, pk, nm, 1.0 / cp.growth_factor(1.0, a))
+        snap_counter[0] += 1
+
+    snapshot_with_fof = bool(ps.get_int("SnapshotWithFOF"))
+
+    def on_snapshot_with_fof(s, a):
+        on_snapshot(s, a)
+        if not snapshot_with_fof:
+            return
+        wt.measure("Snapshot")
+        p = s.particles
+        mask = p.mask.cpu().numpy()
+        npart_tot = int(mask.sum())
+        ndm = int((p.ptype.cpu().numpy()[mask] == 1).sum())
+        mean_sep = boxsize / np.cbrt(max(ndm, npart_tot, 1))
+        groups = fof(s.output_ipos(), p.vel, p.mass, p.ptype, p.mask,
+                     boxsize, mean_sep,
+                     linking_length=ps.get_double("FOFHaloLinkingLength"),
+                     min_length=ps.get_int("FOFHaloMinLength"))
+        pig = os.path.join(outdir, f"{ps.get_string('FOFFileBase')}"
+                           f"_{snap_counter[0] - 1:03d}")
+        save_fof(pig, groups, hdr, a)
+        if ps.get_int("FOFSaveParticles"):
+            # the member positions keep the internal random offset, as
+            # the JAX package writes them (gadget_main.py:1306-1307
+            # passes the particles, not output_ipos)
+            save_fof_particles(pig, groups, p, boxsize=boxsize, atime=a)
+        print(f"FOF at a={a:g}: {groups.ngroups} groups -> {pig}")
+        wt.measure("FOF")
+
+    sim.on_snapshot = on_snapshot_with_fof
+
+    def on_bad_timestep(s):
+        """Emergency TIMESTEP-DUMP snapshot (run.cpp:794-797)."""
+        try:
+            snap_counter_save = snap_counter[0]
+            snap_counter[0] = 999
+            on_snapshot(s, s.atime())
+            src = os.path.join(outdir, f"{base}_999")
+            dst = os.path.join(outdir, "TIMESTEP-DUMP")
+            if os.path.isdir(src):
+                os.rename(src, dst)
+            snap_counter[0] = snap_counter_save
+            # on_snapshot recorded 999 in LastSnapNum.txt, but PART_999
+            # was just renamed away: point it back at the last real one
+            lsn = os.path.join(outdir, "LastSnapNum.txt")
+            prev = None
+            if snap_counter_save > 0:
+                prev = snap_counter_save - 1
+            else:
+                nums = [int(m.group(1)) for f in os.listdir(outdir)
+                        if (m := re.fullmatch(f"{base}_(\\d{{3}})", f))]
+                if nums:
+                    prev = max(nums)
+            if prev is not None:
+                with open(lsn, "w") as fh:
+                    fh.write(str(prev))
+            elif os.path.exists(lsn):
+                os.remove(lsn)
+            print(f"Bad timestep: emergency dump -> {dst}")
+        except Exception as e:       # the dump must never mask the
+            print(f"TIMESTEP-DUMP failed: {e}")   # original error
+    sim.on_bad_timestep = on_bad_timestep
+
+    # human control interface: stop/checkpoint/terminate files and the
+    # wall-clock timeout prediction, polled on PM steps (hci.cpp:76-185,
+    # run.cpp:408); checkpoints reuse the snapshot writer (with FOF when
+    # SnapshotWithFOF) at the next free index, so RestartFlag 1 resumes
+    # from them
+    sim.hci = HCI(outdir, time_limit_cpu=ps.get_double("TimeLimitCPU"),
+                  auto_checkpoint_time=ps.get_double("AutoSnapshotTime"))
+    sim.on_checkpoint = on_snapshot_with_fof
+
+    # per-step statistics: energy.txt, cpu.txt
+    wt = _DeviceWalltime(dev)
+    sim.walltime = wt
+    fd_energy = open(os.path.join(outdir, ps.get_string("EnergyFile")), "a")
+    fd_cpu = open(os.path.join(outdir, ps.get_string("CpuFile")), "a")
+    pk_written = [0]
+
+    def dump_power(s):
+        """powerspectrum-%.4f.txt for every PM step (gravpm.cpp writes
+        at each long-range force)."""
+        while pk_written[0] < len(s.power_history):
+            a_p, kk, pk, nm = s.power_history[pk_written[0]]
+            pk_written[0] += 1
+            _write_power(os.path.join(outdir,
+                                      f"powerspectrum-{a_p:.4f}.txt"),
+                         kk, pk, nm, 1.0 / cp.growth_factor(1.0, a_p))
+
+    def on_step(s):
+        a = s.atime()
+        wt.measure("Misc")
+        dump_power(s)
+        energy_statistics_fast(fd_energy, a, s.particles)
+        wt.write_cpu_log(fd_cpu, a)
+        wt.reset_step()
+
+    sim.on_step = on_step
+    try:
+        sim.run(max_steps=max_steps)
+    finally:
+        fd_energy.close()
+        fd_cpu.close()
+    return sim
+
+
+def main(argv=None):
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    device = _pop_device(argv)
+    mesh_devices = 0
+    if "--mesh" in argv:
+        i = argv.index("--mesh")
+        mesh_devices = argv[i + 1]
+        del argv[i: i + 2]
+    if len(argv) < 1:
+        print("usage: python -m shenqi_tpu_torch.cli.gadget_main paramfile "
+              "[RestartFlag] [SnapNum] [--device cpu]", file=sys.stderr)
+        return 1
+    restart = int(argv[1]) if len(argv) > 1 else 2
+    snapnum = int(argv[2]) if len(argv) > 2 else -1
+    run_gadget(argv[0], restart, snapnum, mesh_devices=mesh_devices,
+               device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

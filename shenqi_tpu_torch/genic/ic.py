@@ -1,0 +1,164 @@
+"""Initial conditions: Gaussian field + Zel'dovich displacement
+(shenqi_tpu/genic/ic.py in torch).
+
+The MP-GenIC analog (libgenic/zeldovich.cpp, main.cpp): the reference's
+Gaussian field (genic/gadget_field.py, host numpy, the same phases for
+the same seed), the displacement transfer as dense per-mode tables, and
+the displacements back through an inverse FFT (torch.fft; cuFFT on the
+card) and the CIC readout (ops/cic.py).
+
+Math (identical to the reference displacement transfer,
+libgenic/zeldovich.cpp:293-315):
+  disp_j(k) = i * (kint_j / kint^2) / (2 pi) / sqrt(L) * Delta(k) * g(k)
+with Delta = sqrt(P(k)) in internal units, g a unit complex Gaussian, and
+an unnormalized inverse FFT.  Velocity = a H(a) f(a) * disp (peculiar).
+
+Only the DM path with the reference phases is ported: `scheme="fast"`
+draws from jax.random in the JAX package and cannot give the same
+realization, and scale-dependent velocities need the CLASS transfer
+tables (ROADMAP A.12).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..core.particles import float_to_ipos
+from ..cosmology.background import Cosmology
+from ..cosmology.power import InputPower
+from ..ops.cic import cic_readout
+
+
+def setup_grid(ngrid: int, boxsize: float):
+    """Particles on a regular lattice with deterministic IDs.
+
+    Matches the reference grid pre-IC (libgenic/zeldovich.cpp IDGenerator)
+    for the DM species: index (i,j,k) -> id = 1 + i*ng^2 + j*ng + k,
+    position at the cell corner.  The JAX package's id offset and
+    fractional shift serve the gas and neutrino lattices (ROADMAP A.6,
+    A.7).
+    """
+    ng = ngrid
+    idx = np.arange(ng)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    pos = np.stack([X, Y, Z], axis=-1).reshape(-1, 3).astype(np.float64)
+    pos = (pos * (boxsize / ng)) % boxsize
+    ids = (1 + X.ravel() * ng * ng + Y.ravel() * ng
+           + Z.ravel()).astype(np.uint64)
+    return pos, ids
+
+
+def gaussian_field(seed: int, nmesh: int, unitary: bool = False,
+                   invert_phase: bool = False,
+                   scheme: str = "gadget") -> np.ndarray:
+    """Unit-variance hermitian complex Gaussian modes g_k [n,n,n//2+1]
+    (host complex64) with the reference's pmic_fill_gaussian_gadget
+    phases: the same seed gives the same realization as MP-GenIC and
+    the JAX package, bit for bit.
+
+    `unitary` fixes |g|=1 keeping the phase (variance suppression);
+    `invert_phase` flips the sign (paired simulations).
+    """
+    if scheme != "gadget":
+        raise NotImplementedError(
+            f"gaussian_field scheme={scheme!r}: only 'gadget' is ported; "
+            "'fast' draws from jax.random in the JAX package and cannot "
+            "give the same realization (ROADMAP A.12)")
+    from .gadget_field import gadget_gaussian_field
+    return gadget_gaussian_field(seed, nmesh, unitary=unitary,
+                                 invert_phase=invert_phase
+                                 ).astype(np.complex64)
+
+
+def _mesh_to_k(nmesh: int):
+    """Integer wavenumbers with the reference's MESH2K convention
+    (petapm.cpp:159-162): i <= N/2 -> i, else i - N.  The Nyquist index
+    N/2 maps to +N/2, not numpy fftfreq's -N/2."""
+    i = np.arange(nmesh)
+    return np.where(i <= nmesh // 2, i, i - nmesh).astype(np.float64)
+
+
+def _mode_tables(nmesh: int):
+    k1 = _mesh_to_k(nmesh)
+    kx = k1[:, None, None]
+    ky = k1[None, :, None]
+    kz = np.arange(nmesh // 2 + 1, dtype=np.float64)[None, None, :]
+    k2 = kx ** 2 + ky ** 2 + kz ** 2
+    return (kx, ky, kz), k2
+
+
+@dataclass
+class ZeldovichResult:
+    pos: np.ndarray        # [N,3] displaced positions (internal units)
+    vel: np.ndarray        # [N,3] velocities (convention per use_peculiar)
+
+
+def displacement_fields(g_k, power: InputPower, CP: Cosmology,
+                        pos_lattice: np.ndarray, boxsize: float,
+                        time_ic: float, use_peculiar: bool = True,
+                        device=None) -> ZeldovichResult:
+    """Zel'dovich displacements and velocities at the lattice points.
+
+    The per-mode tables are host f64 cast to f32 as in the JAX package;
+    the complex field, the three inverse FFTs and the CIC readouts run
+    on `device` (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    nmesh = g_k.shape[0]
+    (kx, ky, kz), k2 = _mode_tables(nmesh)
+
+    kmag_internal = np.sqrt(k2) * (2 * np.pi / boxsize)
+    delta = power.delta_spec(kmag_internal)
+
+    k2_safe = np.where(k2 > 0, k2, 1.0)
+    base = 1.0 / (2 * np.pi) / np.sqrt(boxsize) / k2_safe
+    base = np.where(k2 > 0, base, 0.0)
+
+    ipos = float_to_ipos(pos_lattice, boxsize, device=dev)
+    g = torch.from_numpy(np.ascontiguousarray(g_k, np.complex64)).to(dev)
+
+    def solve_axis(kaxis_int):
+        fac = torch.from_numpy(np.ascontiguousarray(
+            base * kaxis_int * delta, np.float32)).to(dev)
+        field_k = (1j * fac) * g
+        # unnormalized inverse FFT (reference/FFTW convention)
+        mesh = torch.fft.irfftn(field_k, s=(nmesh, nmesh, nmesh)) \
+            * nmesh ** 3
+        return cic_readout(mesh.to(torch.float32), ipos)
+
+    disp = torch.stack([solve_axis(kj) for kj in (kx, ky, kz)],
+                       dim=-1).cpu().numpy()
+
+    hubble_a = CP.hubble_function(time_ic)
+    vel_prefac = time_ic * hubble_a
+    if not use_peculiar:
+        vel_prefac /= np.sqrt(time_ic)
+    vel_prefac *= CP.F_Omega(time_ic)
+    vel = disp.copy() * vel_prefac
+
+    pos = (pos_lattice + disp) % boxsize
+    return ZeldovichResult(pos=pos, vel=vel)
+
+
+def generate_dm_ics(ngrid: int, boxsize: float, seed: int,
+                    power: InputPower, CP: Cosmology, time_ic: float,
+                    unitary: bool = False, invert_phase: bool = False,
+                    nmesh: Optional[int] = None,
+                    use_peculiar: bool = True, device=None):
+    """One-species (DM) IC: returns (pos, vel, ids, mass_per_particle)
+    as host arrays.
+
+    mass = Omega0 * rhocrit * box^3 / ngrid^3 (total matter in DM).
+    """
+    nmesh = nmesh or ngrid
+    pos_lattice, ids = setup_grid(ngrid, boxsize)
+    g_k = gaussian_field(seed, nmesh, unitary, invert_phase)
+    res = displacement_fields(g_k, power, CP, pos_lattice, boxsize,
+                              time_ic, use_peculiar=use_peculiar,
+                              device=device)
+    mass = (CP.Omega0 * CP.RhoCrit * boxsize ** 3) / ngrid ** 3
+    return res.pos, res.vel, ids, mass

@@ -15,8 +15,9 @@ gravity, the grid-stencil short-range force and individual timesteps.
     [PM step] apply_PM_half_kick  (starts the new PM half)
 
 This slice ports DM with `hierarchical=False` (the JAX default) and
-the stencil engine.  Gas, neutrinos, the random box offset, HCI,
-hierarchical gravity and the tree engines raise NotImplementedError.
+the stencil engine, with the random box offset and the human control
+interface (HCI) the CLI turns on.  Gas, neutrinos, hierarchical gravity
+and the tree engines raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,13 +76,22 @@ class Simulation:
     # are charged to the reference timer names (PMgrav/Tree/...)
     walltime: object = None
     on_drift: object = None      # callback(sim, a0, a1) after drifts
-    hci: object = None           # human control: not ported
+    # human control interface (utils/hci.HCI), polled on PM steps;
+    # on_checkpoint(sim, atime) writes its unplanned dumps, hci_exit
+    # records why the loop ended
+    hci: object = None
+    on_checkpoint: object = None
+    hci_exit: str = ""
     resumed: bool = False
     # grow-only stencil caps, so steady-state steps reuse their shapes
     _tier_cache: dict = field(default_factory=dict)
     _caps_cache: dict = field(default_factory=dict)
     n_real: int = 0
+    # anti-correlation random box shift (partmanager.h:79-82, applied
+    # run.cpp:426-428): fraction of the box drawn each PM step; the
+    # uint32 offset is exact, so it subtracts out losslessly at output
     random_offset_frac: float = 0.0
+    _offset_u32: Optional[np.ndarray] = None
     # pair pass through the plain version on any device: only the
     # on-card parity check sets it
     _plain_p2p: bool = False
@@ -95,8 +105,6 @@ class Simulation:
         if self.gravity.engine != "stencil":
             raise NotImplementedError(
                 f"engine {self.gravity.engine!r}: only 'stencil' is ported")
-        if self.random_offset_frac:
-            raise NotImplementedError("the random box offset is not ported")
 
     @property
     def device(self) -> torch.device:
@@ -105,6 +113,38 @@ class Simulation:
     def _wt(self, name: str):
         if self.walltime is not None:
             self.walltime.measure(name)
+
+    def _apply_random_offset(self):
+        """Re-draw the internal particle offset (update_random_offset,
+        partmanager.c:45-62): decorrelates tree-opening errors between
+        PM steps.  The draw is the JAX package's, from
+        RandomState(ti_current & 0x7FFFFFFF), so the offsets are the
+        same bits; positions shift by (new - old) exactly, added in
+        uint32 through wrap_i32.  Writers subtract `_offset_u32` again
+        (output_ipos)."""
+        if not self.random_offset_frac:
+            return
+        rng = np.random.RandomState(
+            int(self.times.ti_current) & 0x7FFFFFFF)
+        rr = rng.uniform(0, 1, 3) * self.random_offset_frac
+        new_u = (rr * 2 ** 32).astype(np.int64).astype(np.uint32)
+        old_u = self._offset_u32 if self._offset_u32 is not None \
+            else np.zeros(3, np.uint32)
+        delta = torch.from_numpy((new_u - old_u).astype(np.int64)).to(
+            self.device)
+        p = self.particles
+        self.particles = p.replace(
+            ipos=wrap_i32(p.ipos.long() + delta[None, :]))
+        self._offset_u32 = new_u
+
+    def output_ipos(self) -> torch.Tensor:
+        """Positions with the internal random shift removed
+        (petaio.cpp:678 convention), int32 bit patterns."""
+        if self._offset_u32 is None:
+            return self.particles.ipos
+        off = torch.from_numpy(self._offset_u32.astype(np.int64)).to(
+            self.device)
+        return wrap_i32(self.particles.ipos.long() - off[None, :])
 
     @classmethod
     def from_arrays(cls, pos, vel, mass, ids, CP, boxsize, nmesh,
@@ -303,6 +343,9 @@ class Simulation:
 
     def proto_forces(self, is_pm, first):
         if is_pm:
+            # the reference redraws the box shift at each full domain
+            # decomposition, i.e. every PM step (run.cpp:426-428)
+            self._apply_random_offset()
             self._compute_pm()
             self._wt("PMgrav")
         self._compute_tree(first_step=first)
@@ -314,6 +357,9 @@ class Simulation:
     def proto_snapshot(self, atime):
         if self.on_snapshot:
             self.on_snapshot(self, atime)
+
+    def proto_checkpoint(self, cb, atime):
+        cb(self, atime)
 
     def proto_pre_timestep(self):
         """No diagnostics before find-timesteps in the DM slice."""

@@ -125,3 +125,65 @@ def test_p2p_kernel_window_degree(degree, compiled):
         inst = kernel_instantiation(w, want_pot)
         assert (inst == "degree 12 compiled in") == compiled, inst
         _check(*_inputs(32, 32, 1024, degree), 32, want_pot, dev, w=w)
+
+
+@pytest.mark.cuda
+def test_fof_labels_on_card_equal_cpu():
+    """FOF of a clustered 16^3 state with gas secondaries: the labels and
+    the catalogue on the card are those of the port's CPU path, bit for
+    bit (integer work: no tolerance)."""
+    from shenqi_tpu_torch.core.particles import float_to_ipos
+    from shenqi_tpu_torch.fof.fof import fof, fof_label
+    dev = _card()
+    box = 60000.0
+    rng = np.random.RandomState(11)
+    n = 16 ** 3
+    pos = rng.uniform(0, box, (n, 3))
+    clump = rng.choice(n, n // 3, replace=False)
+    centers = rng.uniform(0, box, (6, 3))
+    pos[clump] = centers[np.arange(len(clump)) % 6] \
+        + rng.normal(0, 300.0, (len(clump), 3))
+    pos %= box
+    ptype = np.ones(n, np.int8)
+    ptype[::4] = 0
+    vel = rng.normal(0, 50, (n, 3)).astype(np.float32)
+    mass = np.ones(n, np.float32)
+    b = 0.2 * box / 16
+    out = {}
+    for d in ("cpu", dev):
+        ipos = float_to_ipos(pos, box, device=d)
+        prim = torch.from_numpy(ptype == 1).to(d)
+        out[str(d)] = (fof_label(ipos, prim, b, box).cpu(),
+                       fof(ipos, vel, mass, ptype, np.ones(n, bool), box,
+                           box / 16))
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert torch.equal(lc, lg)
+    assert gg.ngroups == gc.ngroups > 0
+    assert np.array_equal(gg.group_id, gc.group_id)
+
+
+@pytest.mark.cuda
+def test_fof_repass_on_card_equal_links():
+    """FOF labels on the card with the pairs within b kept and with the
+    pass run again in every iteration (the form past fof._MAX_LINKS):
+    identical integers."""
+    from shenqi_tpu_torch.core.particles import float_to_ipos
+    from shenqi_tpu_torch.fof import fof as fofm
+    dev = _card()
+    box = 60000.0
+    rng = np.random.RandomState(12)
+    pos = np.vstack([rng.uniform(0, box, (2000, 3)),
+                     rng.uniform(0, box, (3, 3)).repeat(300, 0)
+                     + rng.normal(0, 60.0, (900, 3))]) % box
+    ipos = float_to_ipos(pos, box, device=dev)
+    alive = torch.ones(len(pos), dtype=torch.bool, device=dev)
+    b = 0.2 * box / 12
+    kept = fofm.fof_label(ipos, alive, b, box)
+    saved = fofm._MAX_LINKS
+    fofm._MAX_LINKS = 0
+    try:
+        again = fofm.fof_label(ipos, alive, b, box)
+    finally:
+        fofm._MAX_LINKS = saved
+    assert torch.equal(kept, again)
+    assert int(torch.bincount(kept).max()) >= 250

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _sigma8
 from shenqi_tpu.core.integrate import TimestepParams as JTsp
 from shenqi_tpu.core.timeline import Timeline as JTimeline
 from shenqi_tpu.cosmology.background import Cosmology as JCosmology
@@ -104,19 +105,6 @@ def test_trajectory_matches_jax(kind, n_side, nmesh):
     tb2 = tsim.particles.timebin.numpy()[alive]
     assert np.all((tb1 == tb2) | outlier)
     assert np.isfinite(v2).all()
-
-
-def _sigma8(power):
-    """Top-hat sigma(8 Mpc/h) of an InputPower with norm 1, integrated
-    from k = 1e-5 h/Mpc (in internal units, 1e-5 / mpc_scale)."""
-    R = 8.0 * power.mpc_scale
-    k = np.logspace(np.log10(1e-5 / power.mpc_scale), np.log10(500.0 / R),
-                    8192)
-    kr = R * k
-    w = 3 * (np.sin(kr) / kr ** 3 - np.cos(kr) / kr ** 2)
-    d = power.delta_spec(k)
-    return np.sqrt(np.trapezoid(4 * np.pi / (2 * np.pi) ** 3 * k * k
-                                * (w * d) ** 2, k))
 
 
 def test_kick_times_stay_synchronized():
