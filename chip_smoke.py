@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # on a machine with a card
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
+    python3 chip_smoke.py --steps-log steps.jsonl  # also keep dm-small's steps
 
 Phases, one line each (with seconds since start), in a hard budget of
 BUDGET_S for the whole run, the kernel build included:
@@ -32,21 +33,41 @@ BUDGET_S for the whole run, the kernel build included:
   cli     the two CLIs as a user runs them, at 128^3 (box 128000 kpc/h,
           dm-small's cosmology, an analytic Eisenstein-Hu table):
           genic_main, gadget_main RestartFlag 4 (P(k) of the ICs), 2 (a
-          run to a = 0.11 with snapshot, FOF and the default random
-          offset and HCI) and 3 (FOF of PART_000, and of a clustered
-          snapshot with halos); stage times, kernel launches per force
-          pass, FOF and I/O rates, FOF's peak device memory, and the
-          checks of each output; every launch shape the run gave the
-          pair kernel against the plain version, a second launch's bits
-          and its bound, as in `kernel`
+          run to a = 0.11 at the CLI defaults: hierarchical gravity, the
+          random offset, HCI, snapshot and FOF) and 3 (FOF of PART_000,
+          and of a clustered snapshot with halos); per step the occupied
+          bins, each force call (full pass or active-source level) with
+          its targets, launches and seconds, and the stages; FOF and I/O
+          rates, FOF's peak device memory, and the checks of each
+          output; every launch shape the run gave the pair kernel
+          against the plain version, a second launch's bits and its
+          bound, as in `kernel`
+  dmsmall dm-small as its paramfile stands: 64^3, box 64000 kpc/h, mesh
+          128, z = 9 to a = 0.25 with FOF at 0.15, 0.2, 0.25 (the EH
+          table for its CLASS one); the bins and level calls over the
+          run, the cost of a level call by its targets, host syncs per
+          step (torch's sync debug mode), each FOF's groups, stages and
+          peak memory, the momentum change, and every launch shape
+          against the plain version
+  nu      the neutrino configuration of tests/test_genic_nu.py at 128^3
+          CDM + 64^3 neutrino particles, mesh 256, on a written CLASS-
+          layout transfer table: genic_main (mass split, thermal speeds),
+          RestartFlag 4 (P(k) of the ICs against the mass-weighted
+          input), a MassiveNuLinRespOn run to the first output and a
+          RestartFlag 1 resume from it for one step (one delta_tot column
+          per PM step, the history restored and carried on), the host
+          cost of the response per PM step, and every launch shape
+          against the plain version
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
-It ends with a `kernels:` line (each main path's launches, `cli` and
-`slice`, with the row of its largest launch shape), the JSON kernel
-table (the `cli` run's launches and largest shape), the card's name and
-power limit, and the run's result as one JSON object.  It imports
+It ends with a `kernels:` line (each main path's launches, `cli`,
+`slice`, `dmsmall` and `nu`, with the row of its largest launch shape),
+the JSON kernel table (the `cli` run's launches and largest shape), the
+card's name and power limit, and the run's result as one JSON object.
+`--steps-log PATH` appends dm-small's per-step record (bins, force
+calls, stages) to PATH as JSON lines.  It imports
 neither JAX nor the JAX package, and exits non-zero if any phase fails,
 if the budget runs out, if no card is present (without the rehearsal
 flag), or if the port is not beside it.
@@ -64,7 +85,12 @@ import time
 
 import numpy as np
 
-BUDGET_S = 285.0
+BUDGET_S = 560.0
+# dm-small runs to a = 0.25 (validation/dm_small.py:44-59); the neutrino
+# run to its first output, then resumes from it for one step (a
+# paramfile with a later second output, as a user extends a run)
+DMSMALL_TIMEMAX = 0.25
+NU_RUNS = (("0.0102", 0.0102), ("0.0102,0.0104", 0.0104))
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12       # HBM3
 # the clock of that f32 rate: 132 SMs x 128 FMA lanes x 2 flops
@@ -174,8 +200,8 @@ Seed = 181170
 UnitaryAmplitude = 1
 """
 
-# everything else at its default: the random offset (8 cells) and HCI
-# are on; hierarchical gravity (the default) is not ported yet
+# everything else at its default: hierarchical gravity
+# (SplitGravityTimestepsOn 1), the random offset (8 cells) and HCI are on
 _GADGET = """
 InitCondFile = {ic}
 OutputDir = {out}
@@ -190,9 +216,57 @@ BlackHoleOn = 0
 MetalReturnOn = 0
 WindOn = 0
 SnapshotWithFOF = {fof}
-SplitGravityTimestepsOn = 0
 Nmesh = {nmesh}
 """
+
+
+# the neutrino configuration of tests/test_genic_nu.py (three 0.1333 eV
+# species, z = 99, box 300000 kpc/h) with the EH table and a written
+# CLASS-layout transfer table (_class_tk_table) in place of the
+# reference's CLASS files; tests/test_torch_genic_nu.py writes its
+# paramfile from it too
+_GENIC_NU = """
+OutputDir = {out}/IC
+FileBase = IC
+Ngrid = {ng}
+NgridNu = {ngnu}
+BoxSize = 300000
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+ProduceGas = 0
+HubbleParam = 0.7
+Redshift = 99
+MNue = 0.133333333333
+MNum = 0.133333333333
+MNut = 0.133333333333
+WhichSpectrum = 2
+FileWithInputSpectrum = {pk}
+Sigma8 = -1
+InputPowerRedshift = 0
+FileWithTransferFunction = {tk}
+DifferentTransferFunctions = 1
+UsePeculiarVelocity = 1
+Seed = 181170
+UnitaryAmplitude = 1
+"""
+
+# the lines a gadget_main paramfile adds to _GADGET for that
+# configuration's run with the neutrino linear response
+_GADGET_NU = """MNue = 0.133333333333
+MNum = 0.133333333333
+MNut = 0.133333333333
+FileWithTransferFunction = {tk}
+"""
+
+
+def _nu_cosmology():
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.utils.units import default_units
+    cp = Cosmology(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
+                   HubbleParam=0.7, RadiationOn=1, MNu=(0.133333333333,) * 3)
+    cp.init(0.01, default_units())
+    return cp
 
 
 def _dm_small_cosmology():
@@ -232,6 +306,56 @@ def _eh_table(path):
                        / power.mpc_scale ** 1.5) ** 2]
     np.savetxt(path, table)
     return table
+
+
+def _class_tk_table(path, cp, time_ic):
+    """Write a transfer table in the layout of CLASS's `format = class`
+    output with the extra metric columns (22 columns; what
+    InputPower.load_transfer and gadget_main._build_nu_table read),
+    synthetic but consistent: at the ICs baryons lag the CDM below 0.05
+    h/Mpc, the three neutrino species free-stream below k_fs = 0.05
+    h/Mpc (delta_nu = delta_cdm / (1 + (k/k_fs)^2)), and the velocity
+    columns give each species f(a) times its own delta, so that
+    dlog_growth / delta_spec = f.  `cp` is the port's Cosmology at
+    `time_ic`.  Returns the table."""
+    from shenqi_tpu_torch.utils.constants import LIGHTCGS
+    k = np.logspace(-4, 2, 400)
+    d_cdm = 1.0 / (1.0 + (k / 0.2) ** 2) ** 0.8
+    d_b = d_cdm * (1.0 - 0.3 * k ** 2 / (k ** 2 + 0.05 ** 2))
+    d_nu = d_cdm / (1.0 + (k / 0.05) ** 2)
+    fac = (time_ic * cp.hubble_function(time_ic) / cp.Hubble
+           * 100 * cp.HubbleParam / (LIGHTCGS / 1e5))
+    f = cp.F_Omega(time_ic)
+    t = np.zeros((len(k), 21))
+    t[:, 0] = -d_cdm                 # photons: unread
+    t[:, 1], t[:, 2], t[:, 3] = -d_b, -d_cdm, -d_nu
+    t[:, 4:7] = -d_nu[:, None]       # the three massive species
+    t[:, 8] = -d_cdm                 # total: unread
+    t[:, 11] = 2 * fac * f * d_cdm   # h': v_cdm = h'/2 / fac
+    t[:, 15] = fac * f * (d_b - d_cdm)               # t_b: v_b - v_cdm
+    t[:, 16:19] = (fac * f * (d_nu - d_cdm))[:, None]  # t_ncdm
+    table = np.c_[k, t]
+    np.savetxt(path, table)
+    return table
+
+
+def _bin_span(bins):
+    """'35-38 (4)' for the occupied timebins of a step."""
+    if not bins:
+        return "-"
+    return f"{min(bins)}-{max(bins)} ({len(bins)})"
+
+
+def _histogram(seq):
+    """'{1: 90, 2: 50}': how often each value occurs."""
+    vals, counts = np.unique(np.asarray(seq), return_counts=True)
+    return "{" + ", ".join(f"{v}: {c}" for v, c in zip(vals, counts)) + "}"
+
+
+def _calls_line(calls):
+    """One step's force calls: kind, targets, launches, seconds."""
+    return " | ".join(f"{kind} {n} ({l} launches, {sec:.3f} s)"
+                      for kind, n, l, sec in calls) or "none"
 
 
 def _cpu_steps(path):
@@ -283,8 +407,11 @@ class Smoke:
             (32, 32, 64) if rehearsal else (128, 128, 256))
         self.n_parity, self.mesh_parity = (8, 16) if rehearsal else (32, 64)
         self.n_cli = 16 if rehearsal else 128
-        self.cli_launches = 0
-        self.cli_row = {}
+        self.n_dmsmall = 16 if rehearsal else 64
+        self.n_nu = 16 if rehearsal else 128
+        self.cli_launches = self.dmsmall_launches = self.nu_launches = 0
+        self.cli_row, self.dmsmall_row, self.nu_row = {}, {}, {}
+        self.steps_log = None
 
     # ---------------------------------------------------------------- env
     def env(self):
@@ -732,9 +859,7 @@ class Smoke:
     def _cli(self, tmp):
         import os
         torch = self.torch
-        from shenqi_tpu_torch import simulation
         from shenqi_tpu_torch.cli import gadget_main, genic_main
-        from shenqi_tpu_torch.gravity import stencil as st
         from shenqi_tpu_torch.io.snapshot import (SnapshotHeader,
                                                   read_snapshot,
                                                   write_snapshot)
@@ -796,62 +921,45 @@ class Smoke:
         if not abs(1 - ratio) < 0.08:
             raise SmokeFailure(f"IC P(k) off the table by {ratio - 1:+.3f}")
 
-        # RestartFlag 2: the run, counting the pair kernel per force pass
-        # and keeping one example of each launch shape it gives the
-        # kernel, for the comparison with the plain version after it
-        passes = []
-        shapes = {}
-        real = simulation.Simulation._compute_tree
-
-        def counted(sim_, first_step):
-            before = p2p_blocked.launches
-            real(sim_, first_step)
-            passes.append(p2p_blocked.launches - before)
-
-        def record(fn_, *a, **kw):
-            key = (a[2].shape[0], kw["blk"], a[2].shape[1], kw["want_pot"])
-            shapes.setdefault(key, [0, a, dict(kw)])[0] += 1
-            return fn_(*a, **kw)
-
-        simulation.Simulation._compute_tree = counted
+        # RestartFlag 2: the run at the CLI defaults (hierarchical), with
+        # each force call, the bins of each step and one example of each
+        # pair-kernel launch shape recorded, for the comparison with the
+        # plain version after it
         if not self.rehearsal:
             torch.cuda.reset_peak_memory_stats()
         # the main path: counts set to 0 just before, read just after
         p2p_blocked.launches = 0
         t = time.perf_counter()
-        try:
-            with _Wrap(gadget_main, "write_snapshot", keep=True) as snap, \
-                    _Wrap(gadget_main, "fof", keep=True) as fofw, \
-                    _Wrap(st, "p2p_blocked", through=record):
-                sim = gadget_main.run_gadget(pp, 2, device=dev)
-        finally:
-            simulation.Simulation._compute_tree = real
+        with _Wrap(gadget_main, "write_snapshot", keep=True) as snap, \
+                _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                _RunRecorder(self._sync) as rec:
+            sim = gadget_main.run_gadget(pp, 2, device=dev)
         t2 = time.perf_counter() - t
         self.cli_launches = p2p_blocked.launches
         mem = (torch.cuda.max_memory_allocated() / 2 ** 30
                if not self.rehearsal else float("nan"))
-        # cpu.txt holds each finished step; the last loop pass (the
-        # final forces, the snapshot and FOF) ends without a step record,
-        # so its stages come from the run's timer
-        steps = _cpu_steps(os.path.join(out, "cpu.txt"))
-        steps.append((sim.atime(), dict(sim.walltime.step_acc)))
+        steps = self._run_steps(out, sim)
+        calls = rec.per_step()
+        bins = dict(rec.bins)
         for i, (a, stages) in enumerate(steps):
             say("cli", f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
-                f" at a={a:.5f}: " + ", ".join(
+                f" at a={a:.5f}: bins {_bin_span(bins.get(i))}; force calls "
+                + _calls_line(calls.get(i, [])) + "; stages " + ", ".join(
                     f"{k} {v:.3f} s" for k, v in sorted(stages.items())))
         tot = dict(sorted(sim.walltime.total_acc.items()))
         (_, (spath, shdr, sblocks)), = snap.calls
         nbytes = sum(v.nbytes for b_ in sblocks.values() for v in b_.values())
         fs = fofw.calls[0][0].stats
         say("cli", f"gadget_main RestartFlag 2 to a={sim.atime():.5f}: "
-            f"{t2:.2f} s, {len(steps) - 1} steps, {len(passes)} force "
-            f"passes; stage totals " + ", ".join(
-                f"{k} {v:.3f} s" for k, v in tot.items())
+            f"{t2:.2f} s, {len(steps) - 1} steps, {len(rec.calls)} force "
+            f"calls ({sum(c[1] == 'level' for c in rec.calls)} of them "
+            f"active-source levels), at most "
+            f"{max(len(b) for _, b in rec.bins)} occupied bins; stage totals "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in tot.items())
             + f" (Misc holds the kicks); p2p_blocked launches "
-            f"{self.cli_launches} ({', '.join(map(str, passes))} per pass);"
-            f" peak device memory {mem:.2f} GiB; snapshot write "
-            f"{nbytes / 1e6:.1f} MB in {snap.seconds:.3f} s = "
-            f"{nbytes / 1e6 / snap.seconds:.1f} MB/s; " + _fof_line(fs))
+            f"{self.cli_launches}; peak device memory {mem:.2f} GiB; "
+            f"snapshot write {nbytes / 1e6:.1f} MB in {snap.seconds:.3f} s "
+            f"= {nbytes / 1e6 / snap.seconds:.1f} MB/s; " + _fof_line(fs))
         del sblocks, snap
         for f_ in ("PART_000", "PIG_000", "energy.txt", "cpu.txt",
                    "powerspectrum-0.1100.txt"):
@@ -859,19 +967,13 @@ class Smoke:
                 raise SmokeFailure(f"gadget_main wrote no {f_}")
         if abs(sim.atime() - 0.11) > 1e-6:
             raise SmokeFailure(f"the run ended at a={sim.atime()}")
-        if not self.rehearsal and (not passes or min(passes) <= 0):
-            raise SmokeFailure("a force pass ran without the pair kernel")
-        p = sim.particles
-        mv = p.mass.double()[:, None] * p.vel.double()
-        dp = float(torch.linalg.norm(mv.sum(0).cpu()
-                                     - torch.from_numpy(p0)))
-        smv = float(torch.linalg.norm(mv, dim=1).sum())
-        say("cli", f"|dP| / sum m|v| = {dp / smv:.3e} (limit 1e-3)")
-        if not dp < 1e-3 * smv:
-            raise SmokeFailure("momentum not conserved in the CLI run")
-        del sim, p, mv
-        self.cli_row = self._check_shapes(shapes)
-        del shapes
+        if not sim.hierarchical:
+            raise SmokeFailure("the CLI default did not run hierarchically")
+        self._check_calls("cli", rec)
+        self._check_momentum("cli", sim, p0)
+        del sim
+        self.cli_row = self._check_shapes(rec.shapes, "cli")
+        del rec
 
         # RestartFlag 3 on PART_000, then on a clustered state with halos
         for snap_, label in ((0, "PART_000"), (7, "clustered with halos")):
@@ -910,11 +1012,11 @@ class Smoke:
         if g.ngroups < 1:
             raise SmokeFailure("FOF found no group in the clustered state")
 
-    def _check_shapes(self, shapes):
-        """Every launch shape (nb, blk, S, want_pot) the CLI run gave the
-        pair kernel, on the inputs of one of its launches: against the
-        plain version, a second launch's bits, and its bound.  Returns
-        the row of the shape with the most pair lanes."""
+    def _check_shapes(self, shapes, phase):
+        """Every launch shape (nb, blk, S, want_pot) a run gave the pair
+        kernel, on the inputs of one of its launches: against the plain
+        version, a second launch's bits, and its bound.  Returns the row
+        of the shape with the most pair lanes."""
         from shenqi_tpu_torch.ops.p2p import (p2p_blocked,
                                               p2p_blocked_reference)
         rows = []
@@ -926,20 +1028,336 @@ class Smoke:
                               kw,
                               w.cf.shape[0], w.cp.shape[0],
                               self._in_window(ins, rest))
-            say("cli", f"x{n} in the run: p2p_blocked " + " ".join(
+            say(phase, f"x{n} in the run: p2p_blocked " + " ".join(
                 f"{k}={v}" for k, v in r.items())
                 + f"; {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
             if not r["rel_err"] < 2e-4:
                 raise SmokeFailure(f"p2p_blocked disagrees with its plain "
-                                   f"version at a shape of the CLI run: {r}")
+                                   f"version at a shape of the {phase} run: "
+                                   f"{r}")
             if not r["repeatable"]:
                 raise SmokeFailure(f"p2p_blocked gave other bits on a "
-                                   f"second launch at a shape of the CLI "
-                                   f"run: {r}")
+                                   f"second launch at a shape of the "
+                                   f"{phase} run: {r}")
             rows.append((key[0] * key[1] * key[2], r))
         if not rows:
-            raise SmokeFailure("the CLI run launched no pair kernel")
+            raise SmokeFailure(f"the {phase} run launched no pair kernel")
         return max(rows, key=lambda x: x[0])[1]
+
+    def _run_steps(self, out, sim):
+        """[(a, {stage: seconds})] per step of a gadget_main run: cpu.txt
+        holds each finished step; the last loop pass (the final forces,
+        the snapshot and FOF) ends without a step record, so its stages
+        come from the run's timer."""
+        import os
+        steps = _cpu_steps(os.path.join(out, "cpu.txt"))
+        steps.append((sim.atime(), dict(sim.walltime.step_acc)))
+        return steps
+
+    def _check_calls(self, phase, rec):
+        """Every force call of the run launched the pair kernel (on the
+        card), and every step but the last assigned timebins."""
+        if not rec.calls:
+            raise SmokeFailure(f"the {phase} run made no force call")
+        if not self.rehearsal and min(c[3] for c in rec.calls) <= 0:
+            raise SmokeFailure(f"a force call of the {phase} run launched "
+                               f"no pair kernel")
+
+    def _check_momentum(self, phase, sim, p0):
+        """Total momentum change under 1e-3 of sum m|v|."""
+        torch = self.torch
+        p = sim.particles
+        mv = p.mass.double()[:, None] * p.vel.double()
+        dp = float(torch.linalg.norm(mv.sum(0).cpu()
+                                     - torch.from_numpy(p0)))
+        smv = float(torch.linalg.norm(mv, dim=1).sum())
+        say(phase, f"|dP| / sum m|v| = {dp / smv:.3e} (limit 1e-3)")
+        if not dp < 1e-3 * smv:
+            raise SmokeFailure(f"momentum not conserved in the {phase} run")
+
+    # ------------------------------------------------------------ dmsmall
+    def dmsmall(self):
+        """dm-small as its paramfile stands (validation/dm_small.py:24-59):
+        genic_main, then gadget_main RestartFlag 2 from z = 9 to
+        DMSMALL_TIMEMAX with OutputList 0.15,0.2,0.25 and FOF at each
+        output, at the CLI defaults (hierarchical gravity); the EH table
+        in place of class_pk_9.dat."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_dmsmall_")
+        try:
+            self._dmsmall(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _dmsmall(self, tmp):
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        ng = self.n_dmsmall
+        nmesh, box = 2 * ng, 1000.0 * ng
+        pk = os.path.join(tmp, "pk_eh.txt")
+        _eh_table(pk)
+        out = os.path.join(tmp, "output")
+        gp, pp = os.path.join(tmp, "p.genic"), os.path.join(tmp, "p.gadget")
+        with open(gp, "w") as f:
+            f.write(_GENIC.format(out=tmp, ng=ng, box=box, pk=pk))
+        with open(pp, "w") as f:
+            f.write(_GADGET.replace("OutputList = {a}",
+                                    "OutputList = 0.15,0.2,0.25").format(
+                ic=os.path.join(tmp, "IC", "IC"), out=out,
+                a=DMSMALL_TIMEMAX, fof=1, nmesh=nmesh)
+                + "PartAllocFactor = 2.0\nDensityIndependentSphOn = 0\n")
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        ic = genic_main.run_genic(gp, device=dev)
+        say("dmsmall", f"genic_main Ngrid {ng}, box {box:.0f} kpc/h: "
+            f"{time.perf_counter() - t:.2f} s")
+        hdr, blocks = read_snapshot(ic)
+        p0 = (blocks[1]["Velocity"].astype(np.float64) * hdr.Time
+              * hdr.MassTable[1]).sum(0)
+        del blocks
+
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        t = time.perf_counter()
+        with _Wrap(gadget_main, "fof", keep=True,
+                   peak=not self.rehearsal) as fofw, \
+                _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            sim = gadget_main.run_gadget(pp, 2, device=dev)
+        t2 = time.perf_counter() - t
+        self.dmsmall_launches = p2p_blocked.launches
+        steps = self._run_steps(out, sim)
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        nstep = len(steps) - 1
+        per = rec.per_step()
+        levels = [sum(c[0] == "level" for c in per.get(i, []))
+                  for i in range(nstep + 1)]
+        nbins = [len(b) for _, b in rec.bins]
+        say("dmsmall", f"gadget_main RestartFlag 2, {ng ** 3} particles, "
+            f"mesh {nmesh}, to a={sim.atime():.5f}: {t2:.2f} s, {nstep} "
+            f"steps, {sum(c[1] == 'full' for c in rec.calls)} full passes "
+            f"and {sum(levels)} active-source level calls, "
+            f"{len(sim.power_history)} PM steps; stage totals "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.dmsmall_launches} in "
+            f"{len(rec.shapes)} shapes")
+        allb = sorted({b for _, bb in rec.bins for b in bb})
+        say("dmsmall", f"bins {allb[0]}-{allb[-1]} occupied over the run; "
+            f"steps by their count of occupied bins "
+            f"{_histogram(nbins)}, by their count of level calls "
+            f"{_histogram(levels)}; first and last ten steps' bins: "
+            + ", ".join(_bin_span(b) for _, b in rec.bins[:10]) + " ... "
+            + ", ".join(_bin_span(b) for _, b in rec.bins[-10:]))
+        # the cost of an active-source call by its target count, and of
+        # a step's Tree stage (B.3)
+        for lo, hi in ((0, 1e3), (1e3, 1e4), (1e4, 1e5), (1e5, 1e12)):
+            sel = [c for c in rec.calls
+                   if c[1] == "level" and lo <= c[2] < hi]
+            if sel:
+                say("dmsmall", f"level calls with {lo:.0e}-{hi:.0e} targets:"
+                    f" {len(sel)}, {np.mean([c[4] for c in sel]):.4f} s "
+                    f"each ({np.mean([c[3] for c in sel]):.1f} launches)")
+        full = [c for c in rec.calls if c[1] == "full"]
+        tree = [st_.get("Tree", 0.0) for _, st_ in steps]
+        say("dmsmall", f"full passes {len(full)}, "
+            f"{np.mean([c[4] for c in full]):.4f} s each; Tree per step "
+            f"mean {np.mean(tree):.4f} s, max {np.max(tree):.4f} s; "
+            f"step wall mean {t2 / max(nstep, 1):.4f} s")
+        if rec.syncs:
+            ds = np.diff([0] + rec.syncs)
+            say("dmsmall", f"host syncs flagged by torch's sync debug mode"
+                f" per step: mean {ds.mean():.1f}, max {ds.max()}, "
+                f"total {int(ds.sum())}")
+        for (g, args), sec, pk_ in zip(fofw.calls, fofw.each,
+                                      fofw.peaks or [None] * len(fofw.calls)):
+            fs = g.stats
+            say("dmsmall", f"FOF at an output: {sec:.2f} s, {g.ngroups} "
+                f"groups, largest {int(g.lengths[:1].sum())}, pair pass "
+                f"{fs.pairs_s:.3f} s ({fs.pair_lanes} lanes, "
+                f"{fs.links} links kept, repass {fs.repass}), "
+                f"{fs.iterations} iterations, compile_groups "
+                f"{fs.compile_s:.3f} s, peak device memory above its "
+                "inputs " + (f"{pk_ / 2 ** 20:.1f} MiB" if pk_ is not None
+                             else "not measured on the CPU"))
+        if self.steps_log:
+            with open(self.steps_log, "a") as f:
+                for i, (a, stages) in enumerate(steps):
+                    f.write(json.dumps({
+                        "phase": "dmsmall", "step": i, "a": a,
+                        "bins": dict(rec.bins).get(i),
+                        "calls": per.get(i, []), "stages": stages}) + "\n")
+        if abs(sim.atime() - DMSMALL_TIMEMAX) > 1e-6:
+            raise SmokeFailure(f"dm-small ended at a={sim.atime()}")
+        if len(fofw.calls) != len([a for a in (0.15, 0.2, 0.25)
+                                   if a <= DMSMALL_TIMEMAX + 1e-9]):
+            raise SmokeFailure("dm-small ran FOF at other than its outputs")
+        if max(levels) < 2 or max(nbins) < 2:
+            raise SmokeFailure("no step of dm-small used two or more levels")
+        self._check_calls("dmsmall", rec)
+        self._check_momentum("dmsmall", sim, p0)
+        del sim
+        self.dmsmall_row = self._check_shapes(rec.shapes, "dmsmall")
+        del rec
+
+    # ----------------------------------------------------------------- nu
+    def nu(self):
+        """The neutrino configuration: genic_main with NgridNu and
+        DifferentTransferFunctions 1 on a written CLASS-layout transfer
+        table, RestartFlag 4 (P(k) of the ICs), a short gadget_main run
+        with MassiveNuLinRespOn 1 and one snapshot, then a RestartFlag 1
+        resume from it for one step."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_nu_")
+        try:
+            self._nu(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _nu(self, tmp):
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch import simulation
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.cosmology.power import InputPower, DELTA_NU
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.physics.neutrinos_lra import DeltaTotTable
+        from shenqi_tpu_torch.utils.units import default_units
+        ng, ngnu = self.n_nu, self.n_nu // 2
+        nmesh, box, a_ic = 2 * ng, 300000.0, 0.01
+        cp = _nu_cosmology()
+        pk, tk = os.path.join(tmp, "pk_eh.txt"), os.path.join(tmp, "tk.txt")
+        table = _eh_table(pk)
+        _class_tk_table(tk, cp, a_ic)
+        out = os.path.join(tmp, "output")
+        gp = os.path.join(tmp, "p.genic")
+        with open(gp, "w") as f:
+            f.write(_GENIC_NU.format(out=tmp, ng=ng, ngnu=ngnu, pk=pk, tk=tk))
+        pps = []
+        for i, (outputs, amax) in enumerate(NU_RUNS):
+            pps.append(os.path.join(tmp, f"p{i}.gadget"))
+            with open(pps[-1], "w") as f:
+                f.write(_GADGET.replace("OutputList = {a}",
+                                        f"OutputList = {outputs}").replace(
+                    "MassiveNuLinRespOn = 0", "MassiveNuLinRespOn = 1").format(
+                    ic=os.path.join(tmp, "IC", "IC"), out=out, a=amax, fof=0,
+                    nmesh=nmesh) + _GADGET_NU.format(tk=tk))
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        with _Wrap(genic_main, "displacement_fields") as disp:
+            ic = genic_main.run_genic(gp, device=dev)
+        say("nu", f"genic_main Ngrid {ng} + NgridNu {ngnu}, box {box:.0f} "
+            f"kpc/h, mesh {nmesh}: {time.perf_counter() - t:.2f} s "
+            f"(displacement fields {disp.seconds:.2f} s in "
+            f"{len(disp.each)} calls)")
+        hdr, blocks = read_snapshot(ic)
+        onu = cp.ONu.get_omega_nu(1.0)
+        nufrac = float(np.asarray(hdr.extra["FractionNuInParticles"])[0])
+        split = (hdr.MassTable[2] * ngnu ** 3) / (hdr.MassTable[1] * ng ** 3)
+        want = nufrac * onu / (0.288 - onu)
+        vnu = np.linalg.norm(blocks[2]["Velocity"], axis=1)
+        vdm = np.linalg.norm(blocks[1]["Velocity"], axis=1)
+        say("nu", f"mass split {split:.6g} (want {want:.6g}, limit 1e-3 "
+            f"relative), FractionNuInParticles {nufrac:.6f}, neutrino "
+            f"speeds median {np.median(vnu):.4g} km/s (limit > 3e4), max "
+            f"{vnu.max():.6g} (cap {5000 * 100:.0f}), DM median "
+            f"{np.median(vdm):.4g} km/s (limit < 300)")
+        if not (abs(split / want - 1) < 1e-3 and 0.99 < nufrac <= 1.0
+                and np.median(vnu) > 3e4 and vnu.max() <= 5000 * 100 * 1.001
+                and np.median(vdm) < 300):
+            raise SmokeFailure("the neutrino ICs fail tests/test_genic_nu.py"
+                               "'s checks")
+        m_cdm = hdr.MassTable[1] * ng ** 3
+        m_nu = hdr.MassTable[2] * ngnu ** 3
+        del blocks
+
+        # RestartFlag 4: P(k) of all the particles against the input.
+        # The CDM follows the table (DELTA_TOT), the neutrino particles
+        # its DELTA_NU ratio as load_transfer reads it (three times each
+        # column's, ROADMAP C.4), each weighted by its mass
+        fn = gadget_main.run_gadget(pps[0], 4, device=dev)
+        d = np.loadtxt(fn)
+        knyq = np.pi * ng / (box / 1000.0)
+        low = d[:, 0] < knyq / 4
+        ip = InputPower.from_file(pk, cp, default_units().UnitLength_in_cm)
+        ip.load_transfer(tk, a_ic)
+        k_int = d[low, 0] / ip.mpc_scale
+        r_nu = ip.delta_spec(k_int, DELTA_NU) / ip.delta_spec(k_int)
+        f_nu = m_nu / (m_cdm + m_nu)
+        want_pk = (np.interp(np.log(d[low, 0]), np.log(table[:, 0]),
+                             table[:, 1]) * ((1 - f_nu) + f_nu * r_nu) ** 2)
+        ratio = float((d[low, 2] * d[low, 3]).sum()
+                      / (d[low, 2] * want_pk).sum())
+        say("nu", f"RestartFlag 4: P(z=0) over the {int(low.sum())} bins "
+            f"below a quarter of the particle Nyquist k, mode-weighted, / "
+            f"the mass-weighted input = {ratio:.4f} (limit |1 - ratio| < "
+            f"0.08); the neutrino ratio there {r_nu.min():.3g}-"
+            f"{r_nu.max():.3g}, f_nu {f_nu:.4f}")
+        if not abs(1 - ratio) < 0.08:
+            raise SmokeFailure(f"nu IC P(k) off by {ratio - 1:+.3f}")
+
+        # RestartFlag 2 with the linear response to the first output,
+        # then RestartFlag 1 from it for one step (the resumed sync point's
+        # pass and one more); the counts set to 0 just before the first
+        # run, read after the second
+        sync = self._sync
+        p2p_blocked.launches = 0
+        runs = []
+        for pp_, flag, steps_ in ((pps[0], 2, 10 ** 9), (pps[1], 1, 2)):
+            t = time.perf_counter()
+            with _Wrap(simulation, "measure_cdm_power", sync=sync) as cdm, \
+                    _Wrap(DeltaTotTable, "update") as upd, \
+                    _Wrap(simulation.Simulation, "_nu_factor",
+                          sync=sync) as nuf, \
+                    _RunRecorder(sync) as rec:
+                sim = gadget_main.run_gadget(pp_, flag, max_steps=steps_,
+                                             device=dev)
+            runs.append((sim, rec, time.perf_counter() - t, cdm, upd, nuf))
+        self.nu_launches = p2p_blocked.launches
+        (s1, r1, t1, cdm, upd, nuf), (s2, r2, t2, *_) = runs
+        nt1, nt2 = s1.nu_table, s2.nu_table
+        for j, (c_, u_, n_) in enumerate(zip(cdm.each, upd.each, nuf.each)):
+            say("nu", f"PM step {j}: measure_cdm_power {c_:.4f} s, "
+                f"DeltaTotTable.update {u_:.4f} s, the rest of the factor "
+                f"(potential_factor, the nu3d mesh on the host, its copy) "
+                f"{n_ - c_ - u_:.4f} s")
+        say("nu", f"RestartFlag 2 with MassiveNuLinRespOn 1 to "
+            f"a={s1.atime():.6f}: {t1:.2f} s, {s1.step_count} steps, "
+            f"{len(s1.power_history)} PM steps, delta_tot "
+            f"{nt1.delta_tot.shape}, {len(r1.calls)} force calls, at most "
+            f"{max(len(b) for _, b in r1.bins)} occupied bins; RestartFlag 1 "
+            f"for one step to a={s2.atime():.6f}: {t2:.2f} s, "
+            f"{len(s2.power_history)} PM solves, delta_tot "
+            f"{nt2.delta_tot.shape}; p2p_blocked launches "
+            f"{self.nu_launches}")
+        if nt1.delta_tot.shape[1] != len(s1.power_history):
+            raise SmokeFailure("delta_tot did not gain one column per PM "
+                               "step")
+        saved = BigFile(os.path.join(out, "PART_000"))
+        deltas = saved["Neutrino/Deltas"].read()
+        scale = saved["Neutrino/Scalefact"].read()
+        na = len(scale)
+        # the resumed sync point's PM solve adds no column (its a is the
+        # last one's); every later PM solve adds one
+        if not (np.array_equal(deltas, nt1.delta_tot.ravel())
+                and np.array_equal(nt2.scalefact[:na], scale)
+                and np.array_equal(nt2.delta_tot[:, :na],
+                                   deltas.reshape(-1, na))
+                and nt2.delta_tot.shape[1]
+                == na + len(s2.power_history) - 1):
+            raise SmokeFailure("the resume did not restore and carry on the "
+                               "saved neutrino history")
+        for r in (r1, r2):
+            self._check_calls("nu", r)
+        shapes = dict(r1.shapes)
+        for k, v in r2.shapes.items():
+            shapes.setdefault(k, [0] + v[1:])[0] += v[0]
+        del s1, s2, runs
+        self.nu_row = self._check_shapes(shapes, "nu")
+        del shapes, r1, r2
 
     def profile(self):
         """Where the time goes in one full force pass at the slice's size
@@ -1029,9 +1447,11 @@ class Smoke:
         print("kernels: " + json.dumps([
             dict(entry(r, n), path=path, rel_err=r["rel_err"],
                  shape=[r["nb"], r["blk"], r["S"], r["want_pot"]])
-            for path, r, n in (("cli", self.cli_row, self.cli_launches),
-                               ("slice", self.kernel_row, self.launches))]),
-            flush=True)
+            for path, r, n in (
+                ("cli", self.cli_row, self.cli_launches),
+                ("slice", self.kernel_row, self.launches),
+                ("dmsmall", self.dmsmall_row, self.dmsmall_launches),
+                ("nu", self.nu_row, self.nu_launches))]), flush=True)
         print(json.dumps({"kernels": [entry(self.cli_row,
                                             self.cli_launches)]}),
               flush=True)
@@ -1039,43 +1459,143 @@ class Smoke:
 
 
 class _Wrap:
-    """Within a `with` block, `mod.name` is replaced by a wrapper that
-    sums the seconds of its calls (`seconds`) and notes when the last
-    one returned (`t_end`); with `keep`, it keeps each call's (result,
-    args) in `calls`; with `peak`, the most device memory a call
-    allocated above what was allocated when it began (`peak`, bytes);
-    with `through`, it calls through(fn, *args, **kw) in place of
-    fn(*args, **kw)."""
+    """Within a `with` block, `obj.name` (a module's function or a class's
+    method) is replaced by a wrapper that sums the seconds of its calls
+    (`seconds`, each call's in `each`) and notes when the last one
+    returned (`t_end`); with `sync`, it calls sync() before and after
+    each call; with `keep`, it keeps each call's (result, args) in
+    `calls`; with `peak`, the most device memory a call allocated above
+    what was allocated when it began (`peak`, bytes; each call's in
+    `peaks`); with `through`, it calls through(fn, *args, **kw) in place
+    of fn(*args, **kw)."""
 
-    def __init__(self, mod, name, through=None, keep=False, peak=False):
+    def __init__(self, mod, name, through=None, keep=False, peak=False,
+                 sync=None):
         self.mod, self.name, self.fn = mod, name, getattr(mod, name)
         self.through, self.keep, self.track = through, keep, peak
+        self.sync = sync
         self.seconds, self.t_end, self.calls, self.peak = 0.0, 0.0, [], 0
+        self.each, self.peaks = [], []
 
     def __call__(self, *args, **kw):
         import torch
         if self.track:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+        if self.sync:
+            self.sync()
         t = time.perf_counter()
         out = (self.through(self.fn, *args, **kw) if self.through
                else self.fn(*args, **kw))
+        if self.sync:
+            self.sync()
         self.t_end = time.perf_counter()
         self.seconds += self.t_end - t
+        self.each.append(self.t_end - t)
         if self.track:
-            self.peak = max(self.peak,
-                            torch.cuda.max_memory_allocated() - base)
+            self.peaks.append(torch.cuda.max_memory_allocated() - base)
+            self.peak = max(self.peak, self.peaks[-1])
         if self.keep:
             self.calls.append((out, args))
         return out
 
     def __enter__(self):
-        setattr(self.mod, self.name, self)
+        def wrapper(*args, **kw):     # a function, so a method binds
+            return self(*args, **kw)
+        setattr(self.mod, self.name, wrapper)
         return self
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.fn)
         return False
+
+
+class _RunRecorder:
+    """Within a `with` block, records what a gadget_main run does with
+    the short-range force: each full pass (`_compute_tree`) and each
+    level's active-source call (`_active_source_accel`) as (step, kind,
+    targets, pair-kernel launches, seconds between synchronizes), the
+    occupied timebins after each step's timestep assignment, and one
+    example of each pair-kernel launch shape (nb, blk, S, want_pot) with
+    its count.  With `syncs`, it also counts the host syncs that
+    torch.cuda.set_sync_debug_mode flags, per step."""
+
+    def __init__(self, sync, syncs=False):
+        self.sync, self.count_syncs = sync, syncs
+        self.calls, self.bins, self.shapes, self.syncs = [], [], {}, []
+        self._caught = None
+
+    def __enter__(self):
+        import warnings
+        import torch
+        from shenqi_tpu_torch import simulation
+        from shenqi_tpu_torch.gravity import stencil as st
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        S = simulation.Simulation
+        self._saved = (S._compute_tree, S._active_source_accel,
+                       S._hier_first_half, st.p2p_blocked)
+        tree, level, first, kern = self._saved
+        rec = self
+
+        def timed(kind, fn, targets):
+            def wrapper(sim_, *a, **kw):
+                rec.sync()
+                b, t = p2p_blocked.launches, time.perf_counter()
+                out = fn(sim_, *a, **kw)
+                rec.sync()
+                rec.calls.append((sim_.step_count, kind,
+                                  targets(sim_, *a, **kw),
+                                  p2p_blocked.launches - b,
+                                  time.perf_counter() - t))
+                return out
+            return wrapper
+
+        def first_half(sim_, first_step):
+            bad = first(sim_, first_step)
+            p = sim_.particles
+            rec.bins.append((sim_.step_count, torch.unique(
+                p.timebin[p.mask]).tolist()))
+            if rec._caught is not None:
+                rec.syncs.append(len(rec._caught))
+            return bad
+
+        def record(*a, **kw):
+            key = (a[2].shape[0], kw["blk"], a[2].shape[1], kw["want_pot"])
+            rec.shapes.setdefault(key, [0, a, dict(kw)])[0] += 1
+            return kern(*a, **kw)
+
+        S._compute_tree = timed(
+            "full", tree,
+            lambda s_, first_step: s_.last_n_targets or s_.n_real)
+        S._active_source_accel = timed("level", level,
+                                       lambda s_, sel, n_act: n_act)
+        S._hier_first_half = first_half
+        st.p2p_blocked = record
+        if self.count_syncs:
+            self._warn = warnings.catch_warnings(record=True)
+            self._caught = self._warn.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        from shenqi_tpu_torch import simulation
+        from shenqi_tpu_torch.gravity import stencil as st
+        S = simulation.Simulation
+        (S._compute_tree, S._active_source_accel, S._hier_first_half,
+         st.p2p_blocked) = self._saved
+        if self.count_syncs:
+            import torch
+            torch.cuda.set_sync_debug_mode(0)
+            self._warn.__exit__(*exc)
+        return False
+
+    def per_step(self):
+        """{step: [(kind, targets, launches, seconds), ...]}"""
+        out = {}
+        for step, *rest in self.calls:
+            out.setdefault(step, []).append(tuple(rest))
+        return out
 
 
 class _StageClock:
@@ -1150,6 +1670,9 @@ def _ptxas_report(log: str):
 
 def main(argv) -> int:
     rehearsal = "--cpu-rehearsal" in argv
+    steps_log = None
+    if "--steps-log" in argv:
+        steps_log = argv[argv.index("--steps-log") + 1]
     faulthandler.dump_traceback_later(BUDGET_S + 30, exit=True)
     try:
         import torch
@@ -1167,9 +1690,10 @@ def main(argv) -> int:
               "script", file=sys.stderr)
         return 1
     smoke = Smoke(rehearsal)
+    smoke.steps_log = steps_log
     try:
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "profile"):
+                      "dmsmall", "nu", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:
                 torch.cuda.synchronize()

@@ -10,11 +10,12 @@ RestartFlag semantics match the reference (gadget/main.cpp:51-119):
   3        : run FOF on snapshot SnapNum and write a halo catalog
   4        : compute and write the power spectrum of snapshot SnapNum
 
-The run is on the card unless `--device cpu` is given.  What this slice
-does not port is refused with the ROADMAP item that brings it: gas,
---mesh, the neutrino linear response, lightcones, lensing planes,
-RestartFlag 99 and hierarchical gravity (SplitGravityTimestepsOn, on by
-default: a paramfile for this slice sets it to 0).
+The run is on the card unless `--device cpu` is given.  It runs
+hierarchical gravity (SplitGravityTimestepsOn, on by default) or the
+plain individual timesteps, and the massive-neutrino linear response
+(MassiveNuLinRespOn).  What the port does not have yet is refused with
+the ROADMAP item that brings it: gas, --mesh, lightcones, lensing planes,
+RestartFlag 99 and the erfc short-range window.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ..core.particles import (ParticleData, float_to_ipos, u32,
 from ..io.snapshot import SnapshotHeader, read_snapshot, write_snapshot
 from ..io.fofio import save_fof, save_fof_particles
 from ..simulation import Simulation
+from ..physics.neutrinos_lra import DeltaTotTable
 from ..fof.fof import fof
 
 
@@ -164,22 +166,45 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
     if restart_flag not in (3, 4):
         refuse += [
             (has_gas, "gas particles with HydroOn", "A.7"),
-            (ps.get_int("MassiveNuLinRespOn"),
-             "MassiveNuLinRespOn (the neutrino linear response)", "A.6"),
             (ps.get_int("LightconeOn"), "LightconeOn", "A.8"),
             (ps.get_int("WritePlaneOn"), "WritePlaneOn (lensing planes)",
              "A.8"),
-            (ps.get_int("SplitGravityTimestepsOn")
-             or ps.get_int("HierarchicalGravity"),
-             "hierarchical gravity (SplitGravityTimestepsOn / "
-             "HierarchicalGravity = 1; set SplitGravityTimestepsOn = 0)",
-             "A.5"),
             (ps.get_enum("ShortRangeForceWindowType") != 0,
              "ShortRangeForceWindowType erfc", "A.12")]
     for cond, what, item in refuse:
         if cond:
             raise NotImplementedError(
                 f"gadget_main: {what} is not ported yet (ROADMAP {item})")
+
+
+def _build_nu_table(ps, cp, units, boxsize, nmesh, atime, restart_flag,
+                    snapnum, icfile):
+    """Massive-neutrino linear-response state (neutrinos_lra.cpp;
+    gadget_main.py:237-270 of the JAX package): the delta_tot table, its
+    IC ratio from the CLASS transfer table, and on a resume the history
+    saved with the snapshot.  None when MassiveNuLinRespOn = 0."""
+    if not cp.MassiveNuLinRespOn:
+        return None
+    wavenum = (2 * np.pi / boxsize) * np.arange(1, nmesh // 2 + 1)
+    nt = DeltaTotTable.create(
+        cp, wavenum, time_transfer=atime,
+        unit_time_in_s=units.UnitTime_in_s,
+        unit_velocity=units.UnitVelocity_in_cm_per_s)
+    tfile = ps.get_string("FileWithTransferFunction")
+    if tfile and os.path.exists(tfile):
+        # IC ratio delta_nu/delta_cdm from the CLASS transfer table
+        tr = np.loadtxt(tfile)
+        ktr = tr[:, 0] * cp.HubbleParam / (units.UnitLength_in_cm
+                                           / 3.085678e24)  # h/Mpc -> internal
+        dnu = np.abs(tr[:, 5]) if tr.shape[1] > 5 else np.abs(tr[:, 3])
+        dcdm = np.abs(tr[:, 3])
+        nt.init_ratio = np.interp(wavenum, ktr,
+                                  dnu / np.maximum(dcdm, 1e-30))
+    # resuming: restore the delta_tot history saved with the snapshot
+    if restart_flag in (1, 2) and snapnum >= 0:
+        if nt.load(icfile):
+            print(f"Restored neutrino delta_tot history from {icfile}")
+    return nt
 
 
 class _DeviceWalltime(Walltime):
@@ -327,14 +352,22 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         gravity_kw["softening"] = (
             2.8 * frac * boxsize / np.cbrt(max(len(pos), 1)))
 
+    # every row runs as ptype DM, neutrino particles (type 2) included:
+    # they drift, are written and enter FOF as type 1, as in the JAX
+    # package's single-device run without gas (gadget_main.py:1117-1120,
+    # Simulation.from_arrays; ROADMAP C.4)
     sim = Simulation.from_arrays(pos, vel, mass, ids, cp, boxsize, nmesh,
                                  timeline, atime, tsp=tsp,
                                  gravity_kw=gravity_kw, device=dev)
     sim.resumed = (restart_flag == 1)
+    sim.hierarchical = bool(ps.get_int("SplitGravityTimestepsOn")
+                            or ps.get_int("HierarchicalGravity"))
     # anti-correlation box shift, a fraction of a PM cell
     # (gadget/params.cpp:85, default 8 cells worth over Nmesh)
     sim.random_offset_frac = (ps.get_double("RandomParticleOffset")
                               / max(nmesh, 1))
+    sim.nu_table = _build_nu_table(ps, cp, units, boxsize, nmesh, atime,
+                                   restart_flag, snapnum, icfile)
 
     snap_counter = [_resume_snap_counter(outdir)]
     base = ps.get_string("SnapshotFileBase")
@@ -372,6 +405,8 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             UnitVelocity_in_cm_per_s=units.UnitVelocity_in_cm_per_s,
             UsePeculiarVelocity=1, TimeIC=hdr.TimeIC)
         write_snapshot(path, shdr, blocks)
+        if s.nu_table is not None:
+            s.nu_table.save(path)   # the delta_nu history rides along
         with open(os.path.join(outdir, "LastSnapNum.txt"), "w") as f:
             f.write(str(snap_counter[0]))
         if s.power_history:

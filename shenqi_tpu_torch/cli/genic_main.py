@@ -6,9 +6,10 @@ Usage: python -m shenqi_tpu_torch.cli.genic_main paramfile.genic [--device cpu]
 Reads the same parameter files as the reference genic (genic/params.cpp)
 and writes an IC bigfile readable by both packages and the reference.
 The field is the reference's (host numpy); the FFTs and the CIC readout
-run on the card unless `--device cpu` is given.  This slice ports the DM
-branch: gas (ProduceGas), neutrino particles (NgridNu) and per-species
-transfer functions (DifferentTransferFunctions) are refused.
+run on the card unless `--device cpu` is given.  The DM species, neutrino
+particles (NgridNu, thermal Fermi-Dirac speeds) and per-species transfer
+functions (DifferentTransferFunctions with FileWithTransferFunction) are
+ported; gas (ProduceGas) is refused.
 """
 
 from __future__ import annotations
@@ -22,27 +23,19 @@ from .._device import resolve_device
 from .params import genic_params
 from ..utils.units import get_unitsystem
 from ..cosmology.background import Cosmology
-from ..cosmology.power import InputPower
+from ..cosmology.power import InputPower, DELTA_NU
 from ..genic.ic import setup_grid, gaussian_field, displacement_fields
+from ..genic.thermal import NU_V0, FermiDiracSampler, add_thermal_speeds
 from ..io.bigfile import BigFile
 from ..io.snapshot import SnapshotHeader
 
 
 def _refuse_unported(ps):
-    """The branches of the JAX genic that this slice does not port, each
-    refused where it would take effect."""
-    mnu = sum(ps.get_double(k) for k in ("MNue", "MNum", "MNut"))
-    for cond, what, item in (
-            (ps.get_int("ProduceGas"), "ProduceGas: gas particles", "A.7"),
-            (ps.get_int("NgridNu") > 0 and mnu > 0,
-             "NgridNu: neutrino particles", "A.6"),
-            (ps.get_int("DifferentTransferFunctions")
-             and ps.get_string("FileWithTransferFunction"),
-             "DifferentTransferFunctions with FileWithTransferFunction: "
-             "per-species transfer functions", "A.12")):
-        if cond:
-            raise NotImplementedError(
-                f"genic {what} are not ported yet (ROADMAP {item})")
+    """The branch of the JAX genic that the port does not have yet."""
+    if ps.get_int("ProduceGas"):
+        raise NotImplementedError(
+            "genic ProduceGas: gas particles are not ported yet "
+            "(ROADMAP A.7)")
 
 
 def run_genic(paramfile: str, strict: bool = False, device=None) -> str:
@@ -91,18 +84,75 @@ def run_genic(paramfile: str, strict: bool = False, device=None) -> str:
                         "InputPowerRedshift"),
                     time_ic=time_ic)
 
+    # per-species transfer functions (libgenic/power.c
+    # DifferentTransferFunctions): species transfer ratios and
+    # scale-dependent velocities
+    difftrans = ps.get_int("DifferentTransferFunctions")
+    if difftrans:
+        tf = ps.get_string("FileWithTransferFunction")
+        if tf:
+            power.load_transfer(tf, time_ic)
+            sdv = ps.get_int("ScaleDepVelocity")
+            power.scale_dep_velocity = bool(
+                sdv if sdv >= 0 else difftrans)
+
     g_k = gaussian_field(seed, nmesh,
                          unitary=bool(ps.get_int("UnitaryAmplitude")),
                          invert_phase=bool(ps.get_int("InvertPhase")))
+    species = []   # (ptype, pos, vel, ids, mass)
+
+    ngrid_nu = ps.get_int("NgridNu")
+    mnu_sum = sum(cp.MNu)
+    omega_nu = cp.ONu.get_omega_nu(1.0) if mnu_sum > 0 else 0.0
+    with_nu = ngrid_nu > 0 and mnu_sum > 0
+    nufrac = 0.0
 
     # compute_mass (libgenic/save.cpp:90): CDM excludes neutrinos
-    # whenever MNu > 0 (their mass lives in the linear response)
-    omega_nu = cp.ONu.get_omega_nu(1.0) if sum(cp.MNu) > 0 else 0.0
+    # whenever MNu > 0 (their mass lives in particles * nufrac and/or
+    # the linear response)
     mass_dm = (cp.Omega0 - omega_nu) * cp.RhoCrit * boxsize ** 3 \
         / ngrid ** 3
-    lattice, ids = setup_grid(ngrid, boxsize)
+    # neutrino-particle runs shift the DM and nu lattices apart
+    # (genic/main.cpp:67-72)
+    shift_dm = 0.5 * omega_nu / cp.Omega0 if with_nu else 0.0
+    lattice, ids = setup_grid(ngrid, boxsize, shift_frac=shift_dm)
     res = displacement_fields(g_k, power, cp, lattice, boxsize, time_ic,
                               use_peculiar=use_peculiar, device=dev)
+    species.append((1, res.pos, res.vel, ids, mass_dm))
+
+    # neutrino particle species (genic/main.cpp:87-98,200-231): thermal
+    # Fermi-Dirac velocities and DELTA_NU transfer displacements
+    if with_nu:
+        v_th = NU_V0(redshift, mnu_sum / 3.0,
+                     units.UnitVelocity_in_cm_per_s)
+        if not use_peculiar:
+            v_th /= np.sqrt(time_ic)
+        # genic/params.cpp:162: the z = 0 cap is blown up by (1+z)
+        max_v = (ps.get_double("Max_nuvel") * (1 + redshift)
+                 * (units.UnitVelocity_in_cm_per_s / 1e5))
+        nu_sampler = FermiDiracSampler(v_th, max_v)
+        nufrac = nu_sampler.nufrac()
+        print(f"F-D velocity scale {v_th:g}; particle mass fraction "
+              f"{nufrac:g}")
+        lattice_nu, ids_nu = setup_grid(
+            ngrid_nu, boxsize, id_offset=1 + len(ids),
+            shift_frac=-0.5 * (cp.Omega0 - omega_nu) / cp.Omega0)
+        if power.transfer_ratio:
+            res_nu = displacement_fields(
+                g_k, power, cp, lattice_nu, boxsize, time_ic,
+                ttype=DELTA_NU, use_peculiar=use_peculiar, device=dev)
+            pos_nu, vel_nu = res_nu.pos, res_nu.vel
+        else:
+            # no transfer table: thermal-only neutrinos on the lattice
+            pos_nu = lattice_nu
+            vel_nu = np.zeros_like(lattice_nu, dtype=np.float32)
+        vel_nu = add_thermal_speeds(
+            np.asarray(vel_nu, np.float64), np.random.RandomState(seed + 2),
+            nu_sampler.v_amp, nu_sampler.max_v)
+        mass_nu = (nufrac * omega_nu * cp.RhoCrit * boxsize ** 3
+                   / ngrid_nu ** 3)
+        species.append((2, pos_nu, vel_nu.astype(np.float32), ids_nu,
+                        mass_nu))
 
     # write the IC snapshot
     outdir = ps.get_string("OutputDir")
@@ -112,8 +162,9 @@ def run_genic(paramfile: str, strict: bool = False, device=None) -> str:
     bf = BigFile(path, create=True)
     totnumpart = np.zeros(6, dtype=np.uint64)
     masstable = np.zeros(6)
-    totnumpart[1] = len(ids)
-    masstable[1] = mass_dm
+    for t, pos, vel, ids_t, mass in species:
+        totnumpart[t] = len(pos)
+        masstable[t] = mass
     hdr = SnapshotHeader(
         TotNumPart=totnumpart, MassTable=masstable, Time=time_ic,
         BoxSize=boxsize, Omega0=cp.Omega0, OmegaLambda=cp.OmegaLambda,
@@ -127,15 +178,18 @@ def run_genic(paramfile: str, strict: bool = False, device=None) -> str:
         [ps.get_int("UnitaryAmplitude")], dtype="<i4")
     hdr.extra["InvertPhase"] = np.array([ps.get_int("InvertPhase")],
                                         dtype="<i4")
-    hdr.extra["FractionNuInParticles"] = np.array([0.0])
+    hdr.extra["FractionNuInParticles"] = np.array([nufrac])
     hdr.write(bf)
-    for name, data, dtype, nmemb in (("Position", res.pos, "<f8", 3),
-                                     ("Velocity", res.vel, "<f4", 3),
-                                     ("ID", ids, "<u8", 1)):
-        blk = bf.create_block(f"1/{name}", dtype, len(ids), nmemb=nmemb)
-        blk.write(0, data.astype(dtype))
-        blk.flush()
-    print(f"Wrote ICs to {path}: type1={len(ids)}")
+    for t, pos, vel, ids_t, mass in species:
+        for name, data, dtype, nmemb in (("Position", pos, "<f8", 3),
+                                         ("Velocity", vel, "<f4", 3),
+                                         ("ID", ids_t, "<u8", 1)):
+            blk = bf.create_block(f"{t}/{name}", dtype, len(pos),
+                                  nmemb=nmemb)
+            blk.write(0, data.astype(dtype))
+            blk.flush()
+    print(f"Wrote ICs to {path}: "
+          + ", ".join(f"type{t}={len(p)}" for t, p, *_ in species))
     return path
 
 

@@ -4,10 +4,14 @@
 (core/particles.py:64-90) as numpy arrays and builds the port's
 ParticleData: uint32 fields (`ipos`, `id_lo`, `id_hi`) become int32 bit
 patterns, the rest keep their dtype.  `window_from_numpy` turns a JAX
-PolyWindow's arrays into the port's PolyWindow.  Both are exact.
+PolyWindow's arrays into the port's PolyWindow.  `nu_table_from_numpy`
+turns a JAX DeltaTotTable's host state into the port's, on the port's
+Cosmology.  All three are exact.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -15,6 +19,7 @@ import torch
 from ._device import resolve_device
 from .core.particles import ParticleData, u32_numpy_to_i32
 from .gravity.shortrange import PolyWindow
+from .physics.neutrinos_lra import DeltaTotTable
 
 _U32_FIELDS = ("ipos", "id_lo", "id_hi")
 _DTYPES = {"vel": np.float32, "mass": np.float32, "ptype": np.int8,
@@ -46,3 +51,20 @@ def window_from_numpy(cf, cp, xmax, device=None) -> PolyWindow:
         xmax=float(np.float32(xmax)),
         cf=torch.from_numpy(np.asarray(cf, np.float32).copy()).to(dev),
         cp=torch.from_numpy(np.asarray(cp, np.float32).copy()).to(dev))
+
+
+def nu_table_from_numpy(d: dict, CP) -> DeltaTotTable:
+    """The port's DeltaTotTable from a JAX DeltaTotTable's fields but CP
+    (numpy arrays, lists and floats, copied), on the port's Cosmology
+    `CP`: both packages then continue one neutrino history."""
+    kw = {}
+    for f in dataclasses.fields(DeltaTotTable):
+        if f.name == "CP":
+            continue
+        v = d[f.name]
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, list):
+            v = list(v)
+        kw[f.name] = v
+    return DeltaTotTable(CP=CP, **kw)

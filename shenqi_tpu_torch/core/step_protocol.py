@@ -14,8 +14,8 @@ proto_drift, proto_forces, proto_sources, proto_snapshot,
 proto_checkpoint, proto_pre_timestep and proto_bad_timestep, plus
 `times`, `timeline`, `hci`, `step_count`, `resumed`, `hierarchical`,
 `snapshots`, `on_pm_step`, `on_step`, `on_snapshot`, `on_checkpoint`,
-`_wt`, `_apply_half_kick`, `_apply_pm_half_kick` and
-`_find_timesteps`.
+`_wt`, `_apply_half_kick`, `_apply_pm_half_kick`, `_find_timesteps`
+and `_hier_first_half`.
 """
 
 from __future__ import annotations
@@ -96,7 +96,10 @@ def run_protocol(s, max_steps: int = 10 ** 9):
             break
 
         s.proto_pre_timestep()
-        bad = s._find_timesteps(first_step=first)
+        if s.hierarchical:
+            bad = s._hier_first_half(first_step=first)
+        else:
+            bad = s._find_timesteps(first_step=first)
         s._wt("Timeline")
         if bad:
             s.proto_bad_timestep(bad)

@@ -13,19 +13,24 @@ All host-side float64; the IC generator pulls dense per-mode tables onto
 the device afterwards.
 
 A copy of shenqi_tpu/cosmology/power.py (host numpy, no JAX) so that the
-PyTorch port imports nothing of the JAX package, without the CLASS
-transfer tables (`load_transfer`, `dlog_growth`): the port's genic
-refuses DifferentTransferFunctions until ROADMAP A.12 brings them.
+PyTorch port imports nothing of the JAX package; tests/test_torch_genic_nu.py
+pins the transfer-function readers equal.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
-from ..utils.constants import CM_PER_MPC
-from .background import Cosmology
+from ..utils.constants import CM_PER_MPC, LIGHTCGS
+from .background import Cosmology, tophat_sigma
+
+# transfer types (column roles), matching the reference enum order
+DELTA_BAR, DELTA_CDM, DELTA_NU, DELTA_CB = 0, 1, 2, 3
+VEL_BAR, VEL_CDM, VEL_NU, VEL_CB, VEL_TOT = 4, 5, 6, 7, 8
+DELTA_TOT = 9
+
 
 def eisenstein_hu(k_hmpc, CP: Cosmology):
     """EH98 zero-baryon-wiggle transfer function T(k); k in h/Mpc."""
@@ -61,6 +66,10 @@ class InputPower:
     logD: Optional[np.ndarray] = None      # log10 sqrt(P [(Mpc/h)^3])
     primordial_index: float = 1.0          # EH tilt
     norm: float = 1.0
+    # optional per-species transfer ratios T_type/T_tot on self.logk grid
+    transfer_ratio: Optional[dict] = None  # {type: np.ndarray}
+    growth_ratio: Optional[dict] = None    # {type: np.ndarray} for dlogGrowth
+    scale_dep_velocity: bool = False
 
     @property
     def mpc_scale(self) -> float:
@@ -126,7 +135,7 @@ class InputPower:
         return np.sqrt(np.trapezoid(integrand, k))
 
     # ---- evaluation ----
-    def delta_spec(self, k_internal) -> np.ndarray:
+    def delta_spec(self, k_internal, ttype: int = DELTA_TOT) -> np.ndarray:
         """sqrt(P(k)) in internal units; k in internal (e.g. h/kpc)."""
         k_internal = np.asarray(k_internal, dtype=np.float64)
         k_hmpc = k_internal * self.mpc_scale
@@ -144,6 +153,10 @@ class InputPower:
                                  / np.maximum(intlogk, 1e-10)),
                 0.0)
             delta_mpc = 10.0 ** logD
+            if self.transfer_ratio and ttype in self.transfer_ratio:
+                tr = np.interp(intlogk, self.logk,
+                               self.transfer_ratio[ttype])
+                delta_mpc = delta_mpc * tr
         else:
             # EH analytic: Delta = sqrt(k T^2(k) k^{n-1}); normalization
             # entirely from sigma8
@@ -153,3 +166,104 @@ class InputPower:
         # (Mpc/h)^{3/2} -> internal^{3/2}
         out = delta_mpc * self.mpc_scale ** 1.5 * self.norm
         return np.where(k_hmpc > 0, out, 0.0)
+
+    def load_transfer(self, path: str, time_ic: float):
+        """Load a CLASS transfer table ('extra metric transfer
+        functions=y' format, 22 columns) and build per-species
+        delta/velocity ratios relative to the total
+        (libgenic/power.cpp parse_transfer + init_transfer_table).
+        """
+        tab = np.loadtxt(path)
+        ncol = tab.shape[1]
+        defld = 1 if ncol > 22 else 0
+        nnu = int(round((ncol - 1 - 15 - defld * 2) / 2))
+        k = tab[:, 0]
+        t = tab[:, 1:]
+        CP = self.CP
+
+        d_bar = -t[:, 1]
+        d_cdm = -t[:, 2]
+        d_nu = np.zeros_like(k)
+        onu = CP.ONu.get_omega_nu(time_ic)
+        for j in range(nnu):
+            om_j = (CP.ONu.nu_degeneracies[min(
+                j, len(CP.ONu.nu_degeneracies) - 1)]
+                * CP.ONu.tables[min(j, len(CP.ONu.tables) - 1)].rho(
+                    time_ic) / CP.ONu.rhocrit)
+            d_nu += -t[:, 4 + j + defld] * om_j
+        if onu > 0:
+            d_nu /= onu
+        v_bar = t[:, 12 + nnu + defld].copy()
+        v_cdm = 0.5 * t[:, 8 + nnu + defld]
+        v_nu = np.zeros_like(k)
+        for j in range(nnu):
+            om_j = (CP.ONu.nu_degeneracies[min(
+                j, len(CP.ONu.nu_degeneracies) - 1)]
+                * CP.ONu.tables[min(j, len(CP.ONu.tables) - 1)].rho(
+                    time_ic) / CP.ONu.rhocrit)
+            v_nu += t[:, 13 + nnu + defld * 2 + j] * om_j
+        if onu > 0:
+            v_nu /= onu
+
+        # velocity normalization: / (a H(a)/H0 * 100 h / c[km/s])
+        fac = (time_ic * CP.hubble_function(time_ic) / CP.Hubble
+               * 100 * CP.HubbleParam / (LIGHTCGS / 1e5))
+        v_cdm /= fac
+        v_bar /= fac
+        v_nu /= fac
+        v_bar += v_cdm
+        v_nu += v_cdm
+
+        omega0a3 = CP.OmegaBaryon + CP.OmegaCDM
+        d_cb = (CP.OmegaBaryon * d_bar + CP.OmegaCDM * d_cdm) / omega0a3
+        v_cb = (CP.OmegaBaryon * v_bar + CP.OmegaCDM * v_cdm) / omega0a3
+        onua3 = onu * time_ic ** 3
+        t_tot = (CP.OmegaBaryon * d_bar + CP.OmegaCDM * d_cdm)
+        v_tot = (CP.OmegaBaryon * v_bar + CP.OmegaCDM * v_cdm)
+        omega_tot = omega0a3
+        # neutrinos enter the totals only when MASSIVE
+        # (init_transfer_table counts nnu from CP->MNu, power.cpp:285)
+        if sum(CP.MNu) > 0 and onu > 0:
+            t_tot = t_tot + onua3 * d_nu
+            v_tot = v_tot + onua3 * v_nu
+            omega_tot = omega0a3 + onua3
+        t_tot /= omega_tot
+        v_tot /= omega_tot
+
+        safe = np.where(np.abs(t_tot) > 0, t_tot, 1.0)
+        self.transfer_ratio = {
+            DELTA_BAR: d_bar / safe, DELTA_CDM: d_cdm / safe,
+            DELTA_NU: d_nu / safe, DELTA_CB: d_cb / safe}
+        self.growth_ratio = {
+            VEL_BAR: v_bar / safe, VEL_CDM: v_cdm / safe,
+            VEL_NU: v_nu / safe, VEL_CB: v_cb / safe,
+            VEL_TOT: v_tot / safe}
+        self._transfer_logk = np.log10(k)
+        # re-grid the ratios onto the power table's logk grid
+        if self.logk is not None:
+            for d in (self.transfer_ratio, self.growth_ratio):
+                for key in d:
+                    d[key] = np.interp(self.logk, self._transfer_logk,
+                                       d[key])
+        else:
+            self.logk = self._transfer_logk
+        self.scale_dep_velocity = True
+        return self
+
+    def dlog_growth(self, k_internal, ttype: int = DELTA_TOT) -> np.ndarray:
+        """Scale-dependent velocity factor sqrt(P)*f(k) (VEL_* columns).
+        Falls back to delta_spec when no transfer table is loaded."""
+        if not self.scale_dep_velocity or not self.growth_ratio:
+            return self.delta_spec(k_internal)
+        k_internal = np.asarray(k_internal, dtype=np.float64)
+        k_hmpc = k_internal * self.mpc_scale
+        vtype = ttype
+        if DELTA_BAR <= ttype <= DELTA_CB:
+            vtype = VEL_BAR + (ttype - DELTA_BAR)
+        else:
+            vtype = VEL_TOT
+        base = self.delta_spec(k_internal, DELTA_TOT)
+        logk = np.log10(np.where(k_hmpc > 0, k_hmpc, 1.0))
+        intlogk = np.clip(logk, self.logk[0], self.logk[-1])
+        gr = np.interp(intlogk, self.logk, self.growth_ratio[vtype])
+        return base * gr

@@ -13,10 +13,11 @@ libgenic/zeldovich.cpp:293-315):
 with Delta = sqrt(P(k)) in internal units, g a unit complex Gaussian, and
 an unnormalized inverse FFT.  Velocity = a H(a) f(a) * disp (peculiar).
 
-Only the DM path with the reference phases is ported: `scheme="fast"`
-draws from jax.random in the JAX package and cannot give the same
-realization, and scale-dependent velocities need the CLASS transfer
-tables (ROADMAP A.12).
+Only the reference phases are ported: `scheme="fast"` draws from
+jax.random in the JAX package and cannot give the same realization
+(ROADMAP A.12).  Species lattices take a fractional shift, species
+displacements a transfer type, and with a CLASS transfer table loaded
+the velocities come from the scale-dependent growth (dlog_growth).
 """
 
 from __future__ import annotations
@@ -30,25 +31,25 @@ import torch
 from .._device import resolve_device
 from ..core.particles import float_to_ipos
 from ..cosmology.background import Cosmology
-from ..cosmology.power import InputPower
+from ..cosmology.power import InputPower, DELTA_TOT
 from ..ops.cic import cic_readout
 
 
-def setup_grid(ngrid: int, boxsize: float):
+def setup_grid(ngrid: int, boxsize: float, id_offset: int = 1,
+               shift_frac: float = 0.0):
     """Particles on a regular lattice with deterministic IDs.
 
-    Matches the reference grid pre-IC (libgenic/zeldovich.cpp IDGenerator)
-    for the DM species: index (i,j,k) -> id = 1 + i*ng^2 + j*ng + k,
-    position at the cell corner.  The JAX package's id offset and
-    fractional shift serve the gas and neutrino lattices (ROADMAP A.6,
-    A.7).
+    Matches the reference grid pre-IC (libgenic/zeldovich.cpp IDGenerator):
+    index (i,j,k) -> id = offset + i*ng^2 + j*ng + k, position at the cell
+    corner plus an optional fractional shift (the species lattices of a
+    neutrino or gas run sit apart).
     """
     ng = ngrid
     idx = np.arange(ng)
     X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
     pos = np.stack([X, Y, Z], axis=-1).reshape(-1, 3).astype(np.float64)
-    pos = (pos * (boxsize / ng)) % boxsize
-    ids = (1 + X.ravel() * ng * ng + Y.ravel() * ng
+    pos = ((pos + shift_frac) * (boxsize / ng)) % boxsize
+    ids = (id_offset + X.ravel() * ng * ng + Y.ravel() * ng
            + Z.ravel()).astype(np.uint64)
     return pos, ids
 
@@ -100,19 +101,25 @@ class ZeldovichResult:
 
 def displacement_fields(g_k, power: InputPower, CP: Cosmology,
                         pos_lattice: np.ndarray, boxsize: float,
-                        time_ic: float, use_peculiar: bool = True,
+                        time_ic: float, ttype: int = DELTA_TOT,
+                        use_peculiar: bool = True,
                         device=None) -> ZeldovichResult:
-    """Zel'dovich displacements and velocities at the lattice points.
+    """Zel'dovich displacements and velocities at the lattice points, for
+    the species whose transfer type is `ttype`.
 
     The per-mode tables are host f64 cast to f32 as in the JAX package;
-    the complex field, the three inverse FFTs and the CIC readouts run
-    on `device` (CUDA unless the caller asks for the CPU)."""
+    the complex field, the inverse FFTs and the CIC readouts run on
+    `device` (CUDA unless the caller asks for the CPU).  With
+    scale-dependent velocities (a transfer table loaded) the velocities
+    take three more inverse FFTs of the growth table."""
     dev = resolve_device(device)
     nmesh = g_k.shape[0]
     (kx, ky, kz), k2 = _mode_tables(nmesh)
 
     kmag_internal = np.sqrt(k2) * (2 * np.pi / boxsize)
-    delta = power.delta_spec(kmag_internal)
+    delta = power.delta_spec(kmag_internal, ttype)
+    growth = (power.dlog_growth(kmag_internal, ttype)
+              if power.scale_dep_velocity else None)
 
     k2_safe = np.where(k2 > 0, k2, 1.0)
     base = 1.0 / (2 * np.pi) / np.sqrt(boxsize) / k2_safe
@@ -121,24 +128,30 @@ def displacement_fields(g_k, power: InputPower, CP: Cosmology,
     ipos = float_to_ipos(pos_lattice, boxsize, device=dev)
     g = torch.from_numpy(np.ascontiguousarray(g_k, np.complex64)).to(dev)
 
-    def solve_axis(kaxis_int):
+    def solve_axis(kaxis_int, amp_table):
         fac = torch.from_numpy(np.ascontiguousarray(
-            base * kaxis_int * delta, np.float32)).to(dev)
+            base * kaxis_int * amp_table, np.float32)).to(dev)
         field_k = (1j * fac) * g
         # unnormalized inverse FFT (reference/FFTW convention)
         mesh = torch.fft.irfftn(field_k, s=(nmesh, nmesh, nmesh)) \
             * nmesh ** 3
         return cic_readout(mesh.to(torch.float32), ipos)
 
-    disp = torch.stack([solve_axis(kj) for kj in (kx, ky, kz)],
+    disp = torch.stack([solve_axis(kj, delta) for kj in (kx, ky, kz)],
                        dim=-1).cpu().numpy()
+    if growth is not None:
+        vel = torch.stack([solve_axis(kj, growth) for kj in (kx, ky, kz)],
+                          dim=-1).cpu().numpy()
+    else:
+        vel = disp.copy()
 
     hubble_a = CP.hubble_function(time_ic)
     vel_prefac = time_ic * hubble_a
     if not use_peculiar:
         vel_prefac /= np.sqrt(time_ic)
-    vel_prefac *= CP.F_Omega(time_ic)
-    vel = disp.copy() * vel_prefac
+    if growth is None:
+        vel_prefac *= CP.F_Omega(time_ic)
+    vel = vel * vel_prefac
 
     pos = (pos_lattice + disp) % boxsize
     return ZeldovichResult(pos=pos, vel=vel)

@@ -128,8 +128,17 @@ def finalize_power(ps: PowerSpectrum, cfg: PMConfig, boxsize_mpc: float):
     return kk, power, nmodes[sel]
 
 
+def measure_cdm_power(ipos, mass, cfg: PMConfig, mask=None) -> PowerSpectrum:
+    """Deposit, one FFT and the binning only: the CDM (particle) power
+    that sources the neutrino linear response (measure_power_spectrum,
+    gravpm.cpp:360, taken before the nu factor multiplies the modes)."""
+    mesh = cic_deposit(ipos, mass, cfg.nmesh, mask=mask)
+    rho_k = torch.fft.rfftn(mesh)
+    return measure_power(rho_k, cfg, _cic_invwindow(cfg, ipos.device))
+
+
 def pm_forces(ipos, mass, cfg: PMConfig, mask=None,
-              want_potential: bool = True):
+              want_potential: bool = True, nu_factor=None):
     """Full PM force solve on the device the inputs lie on.
 
     Args:
@@ -137,6 +146,9 @@ def pm_forces(ipos, mass, cfg: PMConfig, mask=None,
       mass: [N] f32
       cfg: PMConfig
       mask: [N] bool — dead particles neither deposit nor read out
+      nu_factor: optional f32 [n, n, n//2+1] multiplier on the density
+        modes (the massive-neutrino linear response, 1 + f_nu
+        delta_nu/delta_cdm), applied before the power is measured
 
     Returns:
       (accel [N,3] f32, potential [N] f32 or None, PowerSpectrum)
@@ -147,6 +159,8 @@ def pm_forces(ipos, mass, cfg: PMConfig, mask=None,
     rho_k = torch.fft.rfftn(mesh)
 
     invwindow = _cic_invwindow(cfg, dev)
+    if nu_factor is not None:
+        rho_k = rho_k * nu_factor
     ps = measure_power(rho_k, cfg, invwindow)
 
     k2 = _k2_int(cfg, dev)

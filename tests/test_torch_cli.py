@@ -1,5 +1,6 @@
 """The port's two CLIs against the JAX package's on the CPU: the miniature
-of tests/test_cli.py (Ngrid 8, Nmesh 16, a = 0.1 -> 0.125) with the
+of tests/test_cli.py (Ngrid 8, Nmesh 16, a = 0.1 -> 0.125, hierarchical
+gravity at its default SplitGravityTimestepsOn = 1) with the
 reference's CLASS spectrum replaced by an analytic Eisenstein-Hu table
 written into the test's directory, normalized by chip_smoke's own
 integral to sigma8 = 0.8 (WhichSpectrum 2, Sigma8 -1, InputPowerRedshift
@@ -17,7 +18,11 @@ Limits, with what these cases measured beside each (CPU, torch
   * P(k) files: k and N columns equal, P to rtol 1e-4 (8.3e-6; RestartFlag
     4: 7.5e-6); kinetic energy to rtol 1e-3 (identical);
   * FOF of a clustered snapshot: PIG GroupID, LengthByType and member
-    blocks identical, masses to rtol 1e-6.
+    blocks identical, masses to rtol 1e-6;
+  * MassiveNuLinRespOn = 1 (three 0.1333 eV species, the IC ratio from
+    chip_smoke._class_tk_table): the run at the trajectory limits, the
+    neutrino history (delta_tot, Scalefact) to rtol 1e-6, and a
+    RestartFlag 1 resume that restores the saved history exactly.
 """
 
 import os
@@ -209,16 +214,117 @@ def test_resume_and_hci_stop(ics, tmp_path):
 
 
 def test_unported_refused(ics, tmp_path):
-    """The CLI default SplitGravityTimestepsOn = 1 is refused, naming
-    hierarchical gravity; so is RestartFlag 99."""
-    _, paths = ics
-    pf = tmp_path / "default.gadget"
-    pf.write_text(_GADGET.replace("SplitGravityTimestepsOn = 0\n", "").format(
-        ic=paths["torch"], out=tmp_path / "o", a=0.125, fof=0, nmesh=16))
-    with pytest.raises(NotImplementedError, match="hierarchical gravity"):
+    """What the port does not run yet is refused, naming its ROADMAP
+    item: gas particles with HydroOn (A.7) and RestartFlag 99 (A.10).
+    The paramfile leaves SplitGravityTimestepsOn at its default."""
+    od = tmp_path / "o"
+    od.mkdir()
+    n, box = 64, 64000.0
+    rng = np.random.RandomState(2)
+    hdr = SnapshotHeader(
+        TotNumPart=np.array([n, n, 0, 0, 0, 0], np.uint64),
+        MassTable=np.zeros(6), Time=0.1, BoxSize=box, Omega0=0.288,
+        OmegaLambda=0.712, OmegaBaryon=0.0472, HubbleParam=0.7,
+        UsePeculiarVelocity=1, TimeIC=0.1)
+    write_snapshot(str(od / "IC_gas"), hdr, {t: {
+        "Position": rng.uniform(0, box, (n, 3)),
+        "Velocity": np.zeros((n, 3), np.float32),
+        "Mass": np.full(n, 1.0, np.float32),
+        "ID": np.arange(1 + t * n, 1 + (t + 1) * n, dtype=np.uint64)}
+        for t in (0, 1)})
+    pf = tmp_path / "gas.gadget"
+    pf.write_text(_GADGET.replace("HydroOn = 0", "HydroOn = 1").format(
+        ic=od / "IC_gas", out=od, a=0.125, fof=0, nmesh=16))
+    with pytest.raises(NotImplementedError, match="gas particles"):
         tg.run_gadget(str(pf), device="cpu")
     with pytest.raises(NotImplementedError, match="RestartFlag 99"):
         tg.run_gadget(str(pf), restart_flag=99, device="cpu")
+
+
+def _nu_params(tmp, ic, out):
+    """The CLI paramfile with the neutrino linear response on
+    (chip_smoke._GADGET_NU: three 0.1333 eV species, the IC ratio from a
+    CLASS-layout transfer table)."""
+    from chip_smoke import _GADGET_NU, _class_tk_table, _nu_cosmology
+    tk = tmp / "tk.txt"
+    if not tk.exists():
+        _class_tk_table(tk, _nu_cosmology(), 0.1)
+    pf = _gadget_param(tmp, ic, out, extra=_GADGET_NU.format(tk=tk))
+    with open(pf) as f:
+        s = f.read().replace("MassiveNuLinRespOn = 0",
+                             "MassiveNuLinRespOn = 1")
+    with open(pf, "w") as f:
+        f.write(s)
+    return pf
+
+
+@pytest.fixture(scope="module")
+def nu_runs(ics):
+    tmp, paths = ics
+    out = {}
+    for name in ("jax", "torch"):
+        od = str(tmp / f"nu_{name}")
+        pf = _nu_params(tmp, paths["jax"], od)
+        out[name] = (j_gadget(pf) if name == "jax"
+                     else tg.run_gadget(pf, device="cpu"), od)
+    return out
+
+
+def test_nu_linear_response_run_parity(nu_runs):
+    (sj, oj), (st, ot) = nu_runs["jax"], nu_runs["torch"]
+    assert st.nu_table is not None and st.hierarchical
+    assert st.atime() == pytest.approx(0.125, rel=1e-3)
+    assert st.times.ti_current == sj.times.ti_current
+    np.testing.assert_array_equal(st.nu_table.init_ratio,
+                                  sj.nu_table.init_ratio)
+    assert st.nu_table.delta_tot.shape == sj.nu_table.delta_tot.shape
+    assert st.nu_table.delta_tot.shape[1] >= 2
+    np.testing.assert_allclose(st.nu_table.scalefact, sj.nu_table.scalefact,
+                               rtol=1e-12)
+    np.testing.assert_allclose(st.nu_table.delta_tot, sj.nu_table.delta_tot,
+                               rtol=1e-6)
+    alive = np.asarray(sj.particles.mask)
+    ip1 = np.asarray(sj.particles.ipos)[alive].astype(np.int64)
+    ip2 = st.particles.ipos_u32()[alive].astype(np.int64)
+    d = np.abs(ip1 - ip2)
+    d = np.minimum(d, 2 ** 32 - d)
+    assert d.max() < 2e-5 * 2 ** 32, d.max() / 2 ** 32
+    v1 = np.asarray(sj.particles.vel)[alive]
+    v2 = st.particles.vel.numpy()[alive]
+    vs = float(np.median(np.abs(v1))) + 1e-6
+    outlier = np.max(np.abs(v1 - v2), axis=1) > 2e-3 * vs + 1e-4
+    assert np.mean(outlier) < 5e-3, int(outlier.sum())
+    # the history rides the snapshot, in the same bytes as the JAX one's
+    bj = BigFile(os.path.join(oj, "PART_000"))
+    bt = BigFile(os.path.join(ot, "PART_000"))
+    for blk in ("Neutrino/Scalefact", "Neutrino/Wavenum"):
+        np.testing.assert_array_equal(bt[blk].read(), bj[blk].read())
+    np.testing.assert_allclose(bt["Neutrino/Deltas"].read(),
+                               bj["Neutrino/Deltas"].read(), rtol=1e-6)
+
+
+def test_nu_resume_restores_history(ics, tmp_path):
+    """An HCI `stop` checkpoints PART_000 with the neutrino history;
+    RestartFlag 1 restores it exactly and carries it on."""
+    _, paths = ics
+    od = tmp_path / "out"
+    od.mkdir()
+    (od / "stop").touch()
+    pf = _nu_params(tmp_path, paths["torch"], str(od))
+    sim = tg.run_gadget(pf, device="cpu")
+    assert sim.hci_exit == "stop"
+    saved = BigFile(str(od / "PART_000"))
+    deltas = saved["Neutrino/Deltas"].read()
+    scale = saved["Neutrino/Scalefact"].read()
+    np.testing.assert_array_equal(deltas, sim.nu_table.delta_tot.ravel())
+    sim2 = tg.run_gadget(pf, restart_flag=1, device="cpu")
+    nt = sim2.nu_table
+    assert sim2.atime() == pytest.approx(0.125, rel=1e-3)
+    na = len(scale)
+    np.testing.assert_array_equal(nt.scalefact[:na], scale)
+    np.testing.assert_array_equal(nt.delta_tot[:, :na],
+                                  deltas.reshape(-1, na))
+    assert nt.delta_tot.shape[1] > na
 
 
 def test_energy_statistics_match(runs, tmp_path):

@@ -187,3 +187,56 @@ def test_fof_repass_on_card_equal_links():
         fofm._MAX_LINKS = saved
     assert torch.equal(kept, again)
     assert int(torch.bincount(kept).max()) >= 250
+
+
+@pytest.mark.cuda
+def test_hierarchical_run_kernel_equals_plain():
+    """A hierarchical 32^3 run (half the particles in three tight clumps,
+    so several levels are occupied), 4 steps, through the kernel and
+    through the plain version: the trajectory limits of
+    __graft_entry__.py:194-206 and equal timebins but for the velocity
+    outliers."""
+    from shenqi_tpu_torch.core.timeline import Timeline
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.simulation import Simulation
+    from shenqi_tpu_torch.utils.units import default_units
+    dev = _card()
+    box, n_side = 64000.0, 32
+    rng = np.random.RandomState(1)
+    n = n_side ** 3
+    pos = rng.uniform(0, box, (n, 3))
+    k = n // 6
+    for c in range(3):
+        pos[c * k:(c + 1) * k] = (rng.uniform(0, box, 3)
+                                  + rng.normal(0, box / 200, (k, 3))) % box
+    vel = rng.normal(0, 5.0, (n, 3)).astype(np.float32)
+    cp = Cosmology(Omega0=0.3, OmegaLambda=0.7, OmegaBaryon=0.05,
+                   HubbleParam=0.7, CMBTemperature=2.7255, RadiationOn=1)
+    cp.init(0.1, default_units())
+    mass = np.full(n, cp.Omega0 * cp.RhoCrit * box ** 3 / n, np.float32)
+    runs = []
+    for plain in (False, True):
+        sim = Simulation.from_arrays(
+            pos, vel, mass, np.arange(1, n + 1, dtype=np.uint64), cp, box,
+            64, Timeline.setup([0.5], 0.1, 0.5), 0.1, device=dev)
+        sim.hierarchical = True
+        sim._plain_p2p = plain
+        levels = []
+        for _ in range(4):
+            sim.run(max_steps=1)
+            levels.append(len(torch.unique(sim.particles.timebin)))
+        runs.append((sim, levels))
+    (sk, lk), (sp, lp) = runs
+    assert max(lk) >= 2 and lk == lp
+    alive = sk.particles.mask.cpu().numpy()
+    d = np.abs(sk.particles.ipos_u32()[alive].astype(np.int64)
+               - sp.particles.ipos_u32()[alive].astype(np.int64))
+    assert np.minimum(d, 2 ** 32 - d).max() < 2e-5 * 2 ** 32
+    v1 = sp.particles.vel.cpu().numpy()[alive]
+    v2 = sk.particles.vel.cpu().numpy()[alive]
+    vs = float(np.median(np.abs(v1))) + 1e-6
+    outlier = np.max(np.abs(v1 - v2), axis=1) > 2e-3 * vs + 1e-4
+    assert np.mean(outlier) < 5e-3
+    tb1 = sk.particles.timebin.cpu().numpy()[alive]
+    tb2 = sp.particles.timebin.cpu().numpy()[alive]
+    assert np.all((tb1 == tb2) | outlier)

@@ -21,8 +21,10 @@ import shenqi_tpu.cli.params as j_params
 import shenqi_tpu.cosmology.power as j_power
 import shenqi_tpu.genic.gadget_field as j_field
 import shenqi_tpu.genic.ic as j_ic
+import shenqi_tpu.genic.thermal as j_thermal
 import shenqi_tpu.io.bigfile as j_bigfile
 import shenqi_tpu.io.snapshot as j_snap
+import shenqi_tpu.physics.neutrinos_lra as j_lra
 import shenqi_tpu.utils.config as j_config
 import shenqi_tpu.utils.hci as j_hci
 import shenqi_tpu.utils.walltime as j_walltime
@@ -33,8 +35,10 @@ import shenqi_tpu_torch.cli.params as t_params
 import shenqi_tpu_torch.cosmology.power as t_power
 import shenqi_tpu_torch.genic.gadget_field as t_field
 import shenqi_tpu_torch.genic.ic as t_ic
+import shenqi_tpu_torch.genic.thermal as t_thermal
 import shenqi_tpu_torch.io.bigfile as t_bigfile
 import shenqi_tpu_torch.io.snapshot as t_snap
+import shenqi_tpu_torch.physics.neutrinos_lra as t_lra
 import shenqi_tpu_torch.utils.config as t_config
 import shenqi_tpu_torch.utils.hci as t_hci
 import shenqi_tpu_torch.utils.walltime as t_walltime
@@ -47,20 +51,35 @@ COSMO = dict(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
 BOX = 64000.0
 
 
-def _code(mod):
+def _code(mod, comments=True):
     """A module's source without its docstring (the port's copies add a
-    line there naming their origin)."""
+    line there naming their origin), and without its comment lines when
+    `comments` is False (a copy that cites a reference behaviour it keeps
+    in a comment, ROADMAP C.4)."""
     src = inspect.getsource(mod)
-    return src[src.index('"""', 3) + 3:]
+    src = src[src.index('"""', 3) + 3:]
+    if not comments:
+        src = "\n".join(ln for ln in src.splitlines()
+                        if not ln.lstrip().startswith("#"))
+    return src
 
 
 @pytest.mark.parametrize("pair", [
     (j_config, t_config), (j_params, t_params), (j_walltime, t_walltime),
-    (j_hci, t_hci), (j_bigfile, t_bigfile), (j_field, t_field)],
-    ids=["config", "params", "walltime", "hci", "bigfile", "gadget_field"])
+    (j_hci, t_hci), (j_bigfile, t_bigfile), (j_field, t_field),
+    (j_thermal, t_thermal), (j_lra, t_lra)],
+    ids=["config", "params", "walltime", "hci", "bigfile", "gadget_field",
+         "thermal", "neutrinos_lra"])
 def test_copied_module_is_the_original(pair):
     j, t = pair
     assert _code(t) == _code(j)
+
+
+def test_copied_power_is_the_original_but_for_comments():
+    """cosmology/power.py is copied whole; its one addition is the comment
+    that cites _tophat_sigma's k-grid slip."""
+    assert _code(t_power, comments=False) == _code(j_power, comments=False)
+    assert _code(t_power) != _code(j_power)
 
 
 @pytest.mark.parametrize("which", ["gadget_params", "genic_params"])

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("simulation", "ops.p2p", "cli.gadget_main",
-                 "cli.genic_main", "fof.fof", "io.snapshot"):
+                 "cli.genic_main", "fof.fof", "io.snapshot", "physics",
+                 "physics.neutrinos_lra", "genic.thermal"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
