@@ -58,12 +58,30 @@ BUDGET_S for the whole run, the kernel build included:
           per PM step, the history restored and carried on), the host
           cost of the response per PM step, and every launch shape
           against the plain version
+  gas     travis-hydro (validation/travis.py:38-98 with the subgrid
+          switches off): 64^3 gas + 64^3 DM, box 128 Mpc/h, z = 99 to
+          a = 0.015 with outputs and FOF at 0.01, 0.012, 0.015, on the EH
+          table and a CLASS-layout transfer table (DifferentTransfer-
+          Functions 1): genic_main with ProduceGas, RestartFlag 4, the run
+          (hierarchical gravity, pressure-entropy SPH, quintic kernel) and
+          a RestartFlag 1 resume for one step; each species' P(k) at each
+          output against its linear spectrum (CDM 4%, baryons 12%), the
+          gas fields finite and positive, adiabatic cooling of the median
+          InternalEnergy (5%), the IC entropy fixed point's convergence,
+          the momentum; per step the stages, per SPH pass its density
+          walks, cover patches, long-reach sources and hydro seconds, host
+          syncs and peak memory; every launch shape against the plain
+          version
+  gas128  the same at 2 x 128^3 particles: genic_main, the IC entropy
+          fixed point and the first 3 loop passes, the same records, and
+          one all-active SPH pass under torch.profiler by operation group
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`slice`, `dmsmall` and `nu`, with the row of its largest launch shape),
+`slice`, `dmsmall`, `nu`, `gas` and `gas128`, with the row of its
+largest launch shape),
 the JSON kernel table (the `cli` run's launches and largest shape), the
 card's name and power limit, and the run's result as one JSON object.
 `--steps-log PATH` appends dm-small's per-step record (bins, force
@@ -86,6 +104,15 @@ import time
 import numpy as np
 
 BUDGET_S = 560.0
+# the CPU rehearsal runs the plain versions on a shared host: it checks
+# the script's flow, not its time, so it has a budget of its own
+REHEARSAL_BUDGET_S = 1500.0
+# travis-hydro (validation/travis.py:38-98): z = 99 to TimeMax 0.015 with
+# its three outputs, then a resume from the last one with a later output;
+# at 128^3 the IC fixed point and the first loop passes
+GAS_A_IC = 0.01
+GAS_RUNS = (("0.01,0.012,0.015", 0.015), ("0.01,0.012,0.015,0.016", 0.016))
+GAS128_STEPS = 3
 # dm-small runs to a = 0.25 (validation/dm_small.py:44-59); the neutrino
 # run to its first output, then resumes from it for one step (a
 # paramfile with a later second output, as a user extends a run)
@@ -112,9 +139,9 @@ def say(phase: str, msg: str):
     print(f"[{phase} {elapsed():7.2f}s] {msg}", flush=True)
 
 
-def check_budget(where: str):
-    if elapsed() > BUDGET_S:
-        raise SmokeFailure(f"time budget of {BUDGET_S:.0f} s spent at {where}")
+def check_budget(where: str, budget: float = BUDGET_S):
+    if elapsed() > budget:
+        raise SmokeFailure(f"time budget of {budget:.0f} s spent at {where}")
 
 
 def _clustered(npart_side, box, seed=181170):
@@ -257,6 +284,63 @@ _GADGET_NU = """MNue = 0.133333333333
 MNum = 0.133333333333
 MNut = 0.133333333333
 FileWithTransferFunction = {tk}
+"""
+
+
+# the reference's travis CI example (validation/travis.py:38-98) as the
+# port runs it: adiabatic gas (the subgrid switches off, their files
+# dropped), the EH table for class_pk_99.dat and _class_tk_table at z = 99
+# for class_tk_99.dat, normalized as the `nu` phase's;
+# tests/test_torch_gas.py writes its paramfiles from these too
+_GENIC_GAS = """
+OutputDir = {out}/IC
+FileBase = IC
+Ngrid = {ng}
+BoxSize = 128.0
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+ProduceGas = 1
+HubbleParam = 0.7
+Redshift = 99
+WhichSpectrum = 2
+FileWithInputSpectrum = {pk}
+Sigma8 = -1
+InputPowerRedshift = 0
+FileWithTransferFunction = {tk}
+DifferentTransferFunctions = {dtf}
+UsePeculiarVelocity = 1
+Seed = 181170
+UnitaryAmplitude = 1
+UnitLength_in_cm = 3.085678e24
+UnitMass_in_g = 1.989e43
+UnitVelocity_in_cm_per_s = 1e5
+"""
+
+_GADGET_GAS = """
+InitCondFile = {ic}
+OutputDir = {out}
+OutputList = {outputs}
+SplitGravityTimestepsOn = 1
+TimeLimitCPU = 43000
+TimeMax = {a}
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+HubbleParam = 0.7
+HydroOn = 1
+CoolingOn = 0
+StarformationOn = 0
+RadiationOn = 1
+DensityIndependentSphOn = 1
+MetalReturnOn = 0
+MassiveNuLinRespOn = 0
+SnapshotWithFOF = 1
+FOFHaloLinkingLength = 0.2
+FOFHaloMinLength = 32
+PartAllocFactor = 2.0
+BlackHoleOn = 0
+WindOn = 0
 """
 
 
@@ -409,8 +493,11 @@ class Smoke:
         self.n_cli = 16 if rehearsal else 128
         self.n_dmsmall = 16 if rehearsal else 64
         self.n_nu = 16 if rehearsal else 128
+        self.n_gas, self.n_gas128 = (32, 16) if rehearsal else (64, 128)
         self.cli_launches = self.dmsmall_launches = self.nu_launches = 0
+        self.gas_launches = self.gas128_launches = 0
         self.cli_row, self.dmsmall_row, self.nu_row = {}, {}, {}
+        self.gas_row, self.gas128_row = {}, {}
         self.steps_log = None
 
     # ---------------------------------------------------------------- env
@@ -1359,6 +1446,367 @@ class Smoke:
         self.nu_row = self._check_shapes(shapes, "nu")
         del shapes, r1, r2
 
+    # ---------------------------------------------------------------- gas
+    def gas(self):
+        """travis-hydro (validation/travis.py:38-98, adiabatic): genic_main
+        with ProduceGas and DifferentTransferFunctions, RestartFlag 4, the
+        run from z = 99 to a = 0.015 with outputs and FOF at 0.01, 0.012
+        and 0.015, then a RestartFlag 1 resume from the last output for
+        one step."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_gas_")
+        try:
+            self._gas(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _gas_files(self, tmp, ng):
+        """The tables and the genic paramfile of travis-hydro at Ngrid ng;
+        returns (genic paramfile, IC path, EH table path, tk path)."""
+        import os
+        pk, tk = os.path.join(tmp, "pk_eh.txt"), os.path.join(tmp, "tk.txt")
+        _eh_table(pk)
+        _class_tk_table(tk, _dm_small_cosmology(), GAS_A_IC)
+        gp = os.path.join(tmp, "p.genic")
+        with open(gp, "w") as f:
+            f.write(_GENIC_GAS.format(out=tmp, ng=ng, pk=pk, tk=tk, dtf=1))
+        return gp, os.path.join(tmp, "IC", "IC"), pk, tk
+
+    def _gas_run(self, phase, pp, flag, max_steps=10 ** 9, syncs=False):
+        """A gadget_main run of a gas paramfile with its force calls,
+        kernel shapes, SPH passes and FOF recorded; returns (sim, seconds,
+        run recorder, SPH recorder, FOF wrapper, peak device GiB)."""
+        from shenqi_tpu_torch.cli import gadget_main
+        torch = self.torch
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        with _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                _SphRecorder(self._sync) as sph, \
+                _RunRecorder(self._sync, syncs=syncs) as rec:
+            sim = gadget_main.run_gadget(pp, flag, max_steps=max_steps,
+                                         device=dev)
+        sec = time.perf_counter() - t
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        self._check_calls(phase, rec)
+        return sim, sec, rec, sph, fofw, mem
+
+    def _sph_report(self, phase, sph, steps):
+        """Per step the stages; per SPH pass its density walks (targets,
+        seconds), cover-patched targets, long-reach sources and hydro
+        seconds; the IC fixed point's iterations."""
+        for i, (a, stages) in enumerate(steps):
+            say(phase, f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: stages " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in sorted(stages.items())))
+        for ps_ in sph.passes:
+            say(phase, f"  SPH pass (step {ps_['step']}): {ps_['targets']} "
+                f"targets, {ps_['seconds']:.3f} s; density {ps_['niter']} "
+                f"iterations: " + ", ".join(f"{n} in {t_:.3f} s"
+                                            for n, t_ in ps_["walks"])
+                + f"; cover patches {ps_['density_cover']} density "
+                f"sub-blocks, {ps_['cover_s']:.3f} s; "
+                f"{ps_['hydro_cover']} hydro cover sub-blocks; "
+                f"{ps_['long_reach']} long-reach sources; hydro "
+                f"{ps_['hydro_s']:.3f} s")
+        for fp in sph.fixed_points:
+            say(phase, f"  IC entropy fixed point: {fp['iterations']} "
+                f"iterations in {fp['seconds']:.3f} s "
+                f"({fp['seconds'] / max(fp['iterations'] + 1, 1):.3f} s per"
+                f" walk), converged {fp['converged']}, max relative change "
+                f"per iteration " + ", ".join(f"{d:.2e}"
+                                              for d in fp["maxdiff"]))
+
+    def _gas(self, tmp):
+        import os
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.utils import constants as C
+        ng = self.n_gas
+        gp, ic, pk, tk = self._gas_files(tmp, ng)
+        out = os.path.join(tmp, "output")
+        pps = []
+        for i, (outputs, amax) in enumerate(GAS_RUNS):
+            pps.append(os.path.join(tmp, f"p{i}.gadget"))
+            with open(pps[-1], "w") as f:
+                f.write(_GADGET_GAS.format(ic=ic, out=out, outputs=outputs,
+                                           a=amax))
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        with _Wrap(genic_main, "displacement_fields") as disp:
+            genic_main.run_genic(gp, device=dev)
+        say("gas", f"genic_main Ngrid {ng} gas + DM ({2 * ng ** 3} "
+            f"particles), box 128 Mpc/h, z = 99: "
+            f"{time.perf_counter() - t:.2f} s (displacement fields "
+            f"{disp.seconds:.2f} s in {len(disp.each)} calls)")
+        hdr, blocks = read_snapshot(ic)
+        if sorted(blocks) != [0, 1] or len(blocks[0]["ID"]) != ng ** 3:
+            raise SmokeFailure("genic wrote no gas species")
+        p0 = sum((blocks[t_]["Velocity"].astype(np.float64) * hdr.Time
+                  * hdr.MassTable[t_]).sum(0) for t_ in (0, 1))
+        del blocks
+        # RestartFlag 4 and the per-species P(k) of the ICs
+        t = time.perf_counter()
+        fn = gadget_main.run_gadget(pps[0], 4, device=dev)
+        say("gas", f"RestartFlag 4: {time.perf_counter() - t:.2f} s -> "
+            f"{os.path.basename(fn)}")
+        theory = _GasTheory(pk, tk)
+        self._species_pk_check("gas", ic, GAS_A_IC, theory)
+
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        sim, t2, rec, sph, fofw, mem = self._gas_run(
+            "gas", pps[0], 2, syncs=not self.rehearsal)
+        self.gas_launches = p2p_blocked.launches
+        steps = self._run_steps(out, sim)
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        say("gas", f"gadget_main RestartFlag 2, {2 * ng ** 3} particles, to "
+            f"a={sim.atime():.5f}: {t2:.2f} s, {len(steps) - 1} steps, "
+            f"{len(rec.calls)} force calls, {len(sph.passes)} SPH passes, "
+            f"{len(sim.power_history)} PM steps, at most "
+            f"{max(len(b) for _, b in rec.bins)} occupied bins; stage "
+            f"totals " + ", ".join(f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.gas_launches} in "
+            f"{len(rec.shapes)} shapes; peak device memory {mem:.2f} GiB")
+        self._sph_report("gas", sph, steps)
+        if rec.syncs:
+            ds = np.diff([0] + rec.syncs)
+            say("gas", f"host syncs flagged by torch's sync debug mode per "
+                f"step: mean {ds.mean():.1f}, max {ds.max()}, total "
+                f"{int(ds.sum())}")
+        for g_, _ in fofw.calls:
+            say("gas", f"FOF at an output: {g_.ngroups} groups, "
+                f"{int(g_.length_by_type[:, 0].sum()) if g_.ngroups else 0} "
+                f"gas rows attached; " + _fof_line(g_.stats))
+        if abs(sim.atime() - GAS_RUNS[0][1]) > 1e-6:
+            raise SmokeFailure(f"travis-hydro ended at a={sim.atime()}")
+        if len(fofw.calls) != 3 or not sph.fixed_points:
+            raise SmokeFailure("travis-hydro ran FOF at other than its three "
+                               "outputs, or no IC entropy fixed point")
+        fp = sph.fixed_points[0]
+        if not (fp["converged"] and fp["iterations"] <= 100):
+            raise SmokeFailure(f"the IC entropy fixed point did not meet its "
+                               f"1e-3 stop: {fp}")
+        self._check_momentum("gas", sim, p0)
+        # u0 from InitGasTemp = -1: the CMB temperature at the ICs
+        u0 = (C.BOLTZMANN * 2.7255 / GAS_A_IC
+              / (4.0 / (1 + 3 * C.HYDROGEN_MASSFRAC)) / C.PROTONMASS
+              / C.GAMMA_MINUS1 / 1e10)
+        for i, a in enumerate((0.01, 0.012, 0.015)):
+            snap = os.path.join(out, f"PART_{i:03d}")
+            self._gas_fields_check(snap, os.path.join(out, f"PIG_{i:03d}"),
+                                   a, u0)
+            self._species_pk_check("gas", snap, a, theory)
+        del sim
+
+        # RestartFlag 1 from the last output, one step on: the restored
+        # state is the saved one (no cold start, no fixed point)
+        saved = BigFile(os.path.join(out, "PART_002"))
+        u_saved = saved["0/InternalEnergy"].read()
+        sim, t1, rec2, sph, _, _ = self._gas_run("gas", pps[1], 1,
+                                                 max_steps=2)
+        say("gas", f"RestartFlag 1 from PART_002 to a={sim.atime():.6f}: "
+            f"{t1:.2f} s, {len(sph.passes)} SPH passes, IC fixed points "
+            f"{len(sph.fixed_points)}")
+        if sph.fixed_points or not sim.atime() > GAS_RUNS[0][1] \
+                or not np.isfinite(u_saved).all():
+            raise SmokeFailure("the resume did not restore the gas state "
+                               "and step on")
+        del sim
+        shapes = dict(rec.shapes)
+        for k_, v in rec2.shapes.items():
+            shapes.setdefault(k_, [0] + v[1:])[0] += v[0]
+        del rec, rec2
+        self.gas_row = self._check_shapes(shapes, "gas")
+
+    def _gas_fields_check(self, snap, pig, a, u0):
+        """The gas blocks of a PART finite and positive, the PIG's gas
+        rows finite, and the median InternalEnergy within 5% of the
+        adiabatic u0 (a_ic/a)^2 of gamma = 5/3 gas in linear flow."""
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        bf = BigFile(snap)
+        for name in ("SmoothingLength", "Density", "EgyWtDensity",
+                     "InternalEnergy"):
+            v = bf[f"0/{name}"].read()
+            if not (np.isfinite(v).all() and (v > 0).all()):
+                raise SmokeFailure(f"{snap}: gas {name} not finite and "
+                                   f"positive")
+        u = bf["0/InternalEnergy"].read()
+        want = u0 * (GAS_A_IC / a) ** 2
+        med = float(np.median(u))
+        pg = BigFile(pig)
+        gas_pig = [pg[f"0/{b}"].read() for b in ("Position", "Mass")
+                   if f"0/{b}" in pg]
+        say("gas", f"  a={a}: gas fields finite and positive; median "
+            f"InternalEnergy {med:.6g} / adiabatic u0 (a_ic/a)^2 "
+            f"{want:.6g} = {med / want:.4f} (limit 5%); PIG gas rows "
+            f"{len(gas_pig[1]) if len(gas_pig) > 1 else 0}")
+        if not all(np.isfinite(x).all() for x in gas_pig):
+            raise SmokeFailure(f"{pig}: gas rows not finite")
+        if not abs(med / want - 1) < 0.05:
+            raise SmokeFailure(f"{snap}: the gas did not cool adiabatically")
+
+    def _species_pk_check(self, phase, snap, a, theory):
+        """P(k) of each species as travis.py species_power measures it
+        (compensated CIC, mesh 128, bins of 2 pi / L) on the port's CIC,
+        on bins 2:5, against the species' linear spectrum: CDM within 4%,
+        baryons within 12% (validation/travis.py:266-276)."""
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        bf = BigFile(snap)
+        res = []
+        for label, t_, rtol in (("cdm", 1, 0.04), ("bar", 0, 0.12)):
+            kk, pk = _species_power(bf[f"{t_}/Position"].read(), 128.0,
+                                    self.dev)
+            want = theory.pk(label, kk[2:5], a)
+            ratio = pk[2:5] / want
+            res.append(f"{label} {np.round(ratio, 4).tolist()} "
+                       f"(limit {rtol:.0%})")
+            if not np.all(np.abs(ratio - 1) < rtol):
+                raise SmokeFailure(f"{snap}: {label} P(k) off its linear "
+                                   f"spectrum: {ratio}")
+        say(phase, f"  P(k) at a={a} on bins 2:5 / linear theory: "
+            + "; ".join(res))
+
+    def gas128(self):
+        """travis-hydro at Ngrid 128 (2 x 128^3 particles): genic_main, the
+        IC entropy fixed point and the first steps, then one all-active
+        SPH pass under torch.profiler."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_gas128_")
+        try:
+            self._gas128(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _gas128(self, tmp):
+        import os
+        from shenqi_tpu_torch.cli import genic_main
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        ng = self.n_gas128
+        gp, ic, pk, tk = self._gas_files(tmp, ng)
+        out = os.path.join(tmp, "output")
+        pp = os.path.join(tmp, "p.gadget")
+        with open(pp, "w") as f:
+            # the first output at the end, so the passes taken write none
+            f.write(_GADGET_GAS.format(ic=ic, out=out, outputs="0.015",
+                                       a=0.015))
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        genic_main.run_genic(gp, device=dev)
+        say("gas128", f"genic_main Ngrid {ng} gas + DM ({2 * ng ** 3} "
+            f"particles): {time.perf_counter() - t:.2f} s")
+        p2p_blocked.launches = 0
+        sim, t2, rec, sph, _, mem = self._gas_run(
+            "gas128", pp, 2, max_steps=GAS128_STEPS,
+            syncs=not self.rehearsal)
+        self.gas128_launches = p2p_blocked.launches
+        steps = self._run_steps(out, sim)
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        say("gas128", f"gadget_main RestartFlag 2 for {GAS128_STEPS} loop "
+            f"passes, to a={sim.atime():.6f}: {t2:.2f} s, "
+            f"{len(rec.calls)} force calls, {len(sph.passes)} SPH passes; "
+            f"stage totals " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in tot.items())
+            + f"; p2p_blocked launches {self.gas128_launches}; peak device "
+            f"memory {mem:.2f} GiB")
+        self._sph_report("gas128", sph, steps)
+        if rec.syncs:
+            ds = np.diff([0] + rec.syncs)
+            say("gas128", f"host syncs per step: {ds.tolist()}")
+        fp = sph.fixed_points[0] if sph.fixed_points else {}
+        if not (fp.get("converged") and fp["iterations"] <= 100):
+            raise SmokeFailure(f"the 128^3 IC entropy fixed point did not "
+                               f"converge: {fp}")
+        self.gas128_row = self._check_shapes(rec.shapes, "gas128")
+        self._sph_profile(sim)
+
+    def _sph_profile(self, sim):
+        """One all-active density + hydro pass of the 128^3 state: host
+        clock, then torch.profiler device time by operation group and the
+        device's busy share."""
+        if self.rehearsal:
+            say("gas128", "SPH profile skipped in the CPU rehearsal")
+            return
+        from torch.profiler import profile, ProfilerActivity
+        from shenqi_tpu_torch.sph import stencil_density as sd
+        from shenqi_tpu_torch.sph import stencil_hydro as sh
+        gp = sim.gas_physics
+
+        def one_pass():
+            self._sync()
+            t = time.perf_counter()
+            gp.density_hydro(sim, sim.gas)
+            self._sync()
+            return (time.perf_counter() - t) * 1e3
+
+        walks = []      # (targets, sub) of each stencil_density_walk call
+
+        def note(fn, *a, **kw):
+            walks.append((a[1].shape[0], kw.get("sub", 32)))
+            return fn(*a, **kw)
+
+        with _Wrap(sd, "stencil_density_walk", through=note):
+            one_pass()
+        n_cover = sum(1 for _, sub in walks if sub == 1)
+        # host clock with a synchronize around each piece: the pair passes
+        # (_sph_eval, _hydro_eval, _hydro_long_eval) against the stencil
+        # bookkeeping (sub-blocks, classification, tables)
+        pieces = [(sd, "_sph_eval"), (sh, "_hydro_eval"),
+                  (sh, "_hydro_long_eval"), (sd, "_sph_count"),
+                  (sh, "_hydro_count"), (sd, "build_grid_sph"),
+                  (sh, "build_grid_hydro")]
+        wraps = [_Wrap(m, n, sync=self._sync) for m, n in pieces]
+        for w in wraps:
+            w.__enter__()
+        try:
+            split_wall = one_pass()
+        finally:
+            for w in wraps:
+                w.__exit__(None, None, None)
+        pair = sum(w.seconds for w in wraps[:3]) * 1e3
+        rest = split_wall - sum(w.seconds for w in wraps) * 1e3
+        say("gas128", f"all-active SPH pass by piece (a synchronize around "
+            f"each): {split_wall:.1f} ms = "
+            + ", ".join(f"{n} {w.seconds * 1e3:.1f} ms in {len(w.each)} "
+                        f"calls" for (_, n), w in zip(pieces, wraps))
+            + f", the rest (predictions, the hsml update, scatters, "
+            f"pressure, Balsara) {rest:.1f} ms; the pair passes "
+            f"{pair:.1f} ms, {100 * pair / split_wall:.1f}% of the pass")
+        wall = one_pass()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one_pass()
+        groups = {}
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us <= 0:
+                continue
+            k = e.key.lower()
+            g = ("sort" if ("sort" in k or "radix" in k) else
+                 "gather/scatter" if any(w in k for w in (
+                     "scatter", "index", "gather")) else
+                 "scan" if "scan" in k else
+                 "reduce" if "reduce" in k else
+                 "copy" if ("copy" in k or "memcpy" in k or "memset" in k)
+                 else "elementwise" if "elementwise" in k else "other")
+            groups[g] = groups.get(g, 0.0) + us / 1e3
+            rows.append((us / 1e3, e.count, e.key))
+        busy = sum(groups.values())
+        say("gas128", f"all-active SPH pass ({walks[0][0] if walks else 0} "
+            f"targets, {len(walks) - n_cover} density walks, {n_cover} "
+            f"cover-patch walks): {wall:.1f} ms; device busy {busy:.1f} ms = "
+            f"{100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%);"
+            f" by group " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                     sorted(groups.items(),
+                                            key=lambda x: -x[1])))
+        for ms_, cnt, key in sorted(rows, reverse=True)[:8]:
+            say("gas128", f"  {ms_:9.3f} ms {cnt:6d}x {key[:90]}")
+
     def profile(self):
         """Where the time goes in one full force pass at the slice's size
         (PM + short range for every particle, the work of a step in
@@ -1451,11 +1899,163 @@ class Smoke:
                 ("cli", self.cli_row, self.cli_launches),
                 ("slice", self.kernel_row, self.launches),
                 ("dmsmall", self.dmsmall_row, self.dmsmall_launches),
-                ("nu", self.nu_row, self.nu_launches))]), flush=True)
+                ("nu", self.nu_row, self.nu_launches),
+                ("gas", self.gas_row, self.gas_launches),
+                ("gas128", self.gas128_row, self.gas128_launches))]),
+              flush=True)
         print(json.dumps({"kernels": [entry(self.cli_row,
                                             self.cli_launches)]}),
               flush=True)
         print(self.card, flush=True)
+
+
+class _GasTheory:
+    """The linear spectrum of each species of travis-hydro: the EH table
+    and the CLASS-layout transfer table as genic reads them (normalized to
+    the ICs from InputPowerRedshift 0), the species' transfer type
+    squared (DELTA_CDM for the DM, DELTA_BAR for the gas: what genic
+    drew), times the squared growth ratio D(a)/D(a_ic)."""
+
+    def __init__(self, pk, tk):
+        from shenqi_tpu_torch.cosmology.background import Cosmology
+        from shenqi_tpu_torch.cosmology.power import InputPower
+        from shenqi_tpu_torch.utils.units import get_unitsystem
+        units = get_unitsystem(3.085678e24, 1.989e43, 1e5)
+        self.cp = Cosmology(Omega0=0.288, OmegaLambda=0.712,
+                            OmegaBaryon=0.0472, HubbleParam=0.7,
+                            CMBTemperature=2.7255, RadiationOn=1)
+        self.cp.init(GAS_A_IC, units)
+        self.power = InputPower.from_file(pk, self.cp,
+                                          units.UnitLength_in_cm)
+        self.power.normalize(sigma8=-1, input_power_redshift=0,
+                             time_ic=GAS_A_IC)
+        self.power.load_transfer(tk, GAS_A_IC)
+
+    def pk(self, label, k, a):
+        from shenqi_tpu_torch.cosmology.power import DELTA_BAR, DELTA_CDM
+        t = DELTA_CDM if label == "cdm" else DELTA_BAR
+        d = self.cp.growth_factor(a, GAS_A_IC)
+        return self.power.delta_spec(k, t) ** 2 * d ** 2
+
+
+def _species_power(pos, boxsize, device, nmesh=128):
+    """Compensated-CIC P(k) of one species' positions on bins of width
+    2 pi / box (validation/travis.py:103-164 species_power, on the port's
+    CIC).  Returns (k, P) in the snapshot's units."""
+    import torch
+    from shenqi_tpu_torch.core.particles import float_to_ipos
+    from shenqi_tpu_torch.ops.cic import cic_deposit
+    n = len(pos)
+    ipos = float_to_ipos(pos % boxsize, boxsize, device=device)
+    mesh = cic_deposit(ipos, torch.full((n,), 1.0 / n, device=device), nmesh)
+    rho_k = torch.fft.rfftn(mesh.double() * nmesh ** 3)
+    pk3d = (rho_k.real ** 2 + rho_k.imag ** 2).cpu().numpy() / nmesh ** 6
+    kx = np.fft.fftfreq(nmesh, 1.0 / nmesh)[:, None, None]
+    ky = np.fft.fftfreq(nmesh, 1.0 / nmesh)[None, :, None]
+    kz = np.arange(nmesh // 2 + 1)[None, None, :]
+    kmag = np.sqrt(kx ** 2 + ky ** 2 + kz ** 2)
+    w = np.pi / nmesh
+    wcic = (np.sinc(kx * w / np.pi) * np.sinc(ky * w / np.pi)
+            * np.sinc(kz * w / np.pi)) ** 2
+    pk3d = pk3d / wcic ** 2
+    # the kz = 0 and kz = n/2 planes count once, the others twice
+    wgt = np.full(pk3d.shape, 2.0)
+    wgt[:, :, 0] = 1.0
+    wgt[:, :, -1] = 1.0
+    bins = np.rint(kmag).astype(int).ravel()
+    keep = bins > 0
+    b = bins[keep]
+    nb = nmesh // 2 + 1
+    psum = np.bincount(b, (pk3d * wgt).ravel()[keep], minlength=nb)
+    ksum = np.bincount(b, np.broadcast_to(kmag * wgt, pk3d.shape
+                                          ).ravel()[keep], minlength=nb)
+    cnt = np.bincount(b, wgt.ravel()[keep], minlength=nb)
+    good = cnt > 0
+    return (ksum[good] / cnt[good] * (2 * np.pi / boxsize),
+            psum[good] / cnt[good] * boxsize ** 3)
+
+
+class _SphRecorder:
+    """Within a `with` block, records each SPH pass of a run
+    (GasPhysics.density_hydro): its step and seconds; its targets and
+    hsml-loop iterations (sph.density); each density walk's targets and
+    seconds and the sub-blocks it flagged for the cover patch, whose
+    one-target walks (sub=1) are timed apart (stencil_density_walk); the
+    hydro walk's cover sub-blocks, long-reach sources and seconds
+    (stencil_hydro_walk); and each IC entropy fixed point's iterations
+    and seconds.  Every timed call sits between two synchronizes."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.passes, self.fixed_points = [], []
+        self._reset()
+
+    def _reset(self):
+        self._cur = dict(targets=0, niter=0, walks=[], cover_s=0.0,
+                         density_cover=0, hydro_cover=0, long_reach=0,
+                         hydro_s=0.0)
+
+    def _timed(self, fn, sink):
+        rec = self
+
+        def wrapper(*a, **kw):
+            rec.sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            rec.sync()
+            sink(a, kw, out, time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from shenqi_tpu_torch import simulation_gas as sg
+        from shenqi_tpu_torch.sph import stencil_density as sd
+        GP = sg.GasPhysics
+        self._saved = (GP.density_hydro, GP.setup_density_indep_entropy,
+                       sg.sph_density, sd.stencil_density_walk,
+                       sg.stencil_hydro_walk)
+        dh, fp, dens, sdw, shw = self._saved
+        rec = self
+
+        def on_pass(a, kw, out, sec):
+            rec.passes.append(dict(rec._cur, step=a[1].step_count,
+                                   seconds=sec))
+            rec._reset()
+
+        def on_fixed_point(a, kw, out, sec):
+            rec.fixed_points.append(dict(a[0].last_fixed_point,
+                                         seconds=sec))
+
+        def on_density(a, kw, out, sec):
+            rec._cur.update(targets=a[1].shape[0], niter=out.niter)
+
+        def on_walk(a, kw, out, sec):
+            # the cover patch walks one target per sub-block (sub=1)
+            if kw.get("sub", 32) == 1:
+                rec._cur["cover_s"] += sec
+            else:
+                rec._cur["walks"].append((a[1].shape[0], sec))
+                rec._cur["density_cover"] += out[2]
+
+        def on_hydro(a, kw, out, sec):
+            rec._cur["hydro_s"] += sec
+            rec._cur["hydro_cover"] += out[2]
+            rec._cur["long_reach"] += out[3]
+
+        GP.density_hydro = self._timed(dh, on_pass)
+        GP.setup_density_indep_entropy = self._timed(fp, on_fixed_point)
+        sg.sph_density = self._timed(dens, on_density)
+        sd.stencil_density_walk = self._timed(sdw, on_walk)
+        sg.stencil_hydro_walk = self._timed(shw, on_hydro)
+        return self
+
+    def __exit__(self, *exc):
+        from shenqi_tpu_torch import simulation_gas as sg
+        from shenqi_tpu_torch.sph import stencil_density as sd
+        GP = sg.GasPhysics
+        (GP.density_hydro, GP.setup_density_indep_entropy, sg.sph_density,
+         sd.stencil_density_walk, sg.stencil_hydro_walk) = self._saved
+        return False
 
 
 class _Wrap:
@@ -1673,7 +2273,8 @@ def main(argv) -> int:
     steps_log = None
     if "--steps-log" in argv:
         steps_log = argv[argv.index("--steps-log") + 1]
-    faulthandler.dump_traceback_later(BUDGET_S + 30, exit=True)
+    budget = REHEARSAL_BUDGET_S if rehearsal else BUDGET_S
+    faulthandler.dump_traceback_later(budget + 30, exit=True)
     try:
         import torch
     except ImportError:
@@ -1693,11 +2294,11 @@ def main(argv) -> int:
     smoke.steps_log = steps_log
     try:
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "dmsmall", "nu", "profile"):
+                      "dmsmall", "nu", "gas", "gas128", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:
                 torch.cuda.synchronize()
-            check_budget(phase)
+            check_budget(phase, budget)
         smoke.report()
     except Exception as e:  # every failure ends the run non-zero
         import traceback
@@ -1708,7 +2309,7 @@ def main(argv) -> int:
     finally:
         faulthandler.cancel_dump_traceback_later()
     say("done", f"all phases passed in {elapsed():.1f} s "
-        f"(budget {BUDGET_S:.0f} s)")
+        f"(budget {budget:.0f} s)")
     if rehearsal:
         print(json.dumps({"ok": True, "rehearsal": "cpu"}), flush=True)
     else:

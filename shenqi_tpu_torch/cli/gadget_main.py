@@ -1,5 +1,5 @@
 """MP-Gadget equivalent CLI (gadget/main.cpp analog), the single-device
-DM path of shenqi_tpu/cli/gadget_main.py for the port.
+path of shenqi_tpu/cli/gadget_main.py for the port.
 
 Usage:
   python -m shenqi_tpu_torch.cli.gadget_main paramfile [RestartFlag] [SnapNum] [--device cpu]
@@ -12,10 +12,14 @@ RestartFlag semantics match the reference (gadget/main.cpp:51-119):
 
 The run is on the card unless `--device cpu` is given.  It runs
 hierarchical gravity (SplitGravityTimestepsOn, on by default) or the
-plain individual timesteps, and the massive-neutrino linear response
-(MassiveNuLinRespOn).  What the port does not have yet is refused with
-the ROADMAP item that brings it: gas, --mesh, lightcones, lensing planes,
-RestartFlag 99 and the erfc short-range window.
+plain individual timesteps, the massive-neutrino linear response
+(MassiveNuLinRespOn) and adiabatic gas (gas particles with HydroOn:
+pressure-entropy or density-entropy SPH, snapshots with the gas blocks,
+resumes that restore the gas state).  What the port does not have yet is
+refused with the ROADMAP item that brings it: subgrid gas physics (the
+cooling, star-formation, wind, black-hole, metal-return and
+reionization switches), --mesh, lightcones, lensing planes, RestartFlag
+99 and the erfc short-range window.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from .genic_main import _pop_device
 from .params import gadget_params
 from ..utils.units import get_unitsystem
 from ..utils.config import build_output_list
-from ..utils.constants import CM_PER_MPC
+from ..utils.constants import (CM_PER_MPC, BOLTZMANN, PROTONMASS,
+                               GAMMA_MINUS1, HYDROGEN_MASSFRAC)
 from ..utils.hci import HCI
 from ..utils.walltime import Walltime
 from ..utils.stats import energy_statistics_fast
@@ -44,6 +49,8 @@ from ..core.particles import (ParticleData, float_to_ipos, u32,
 from ..io.snapshot import SnapshotHeader, read_snapshot, write_snapshot
 from ..io.fofio import save_fof, save_fof_particles
 from ..simulation import Simulation
+from ..simulation_gas import GasPhysics
+from ..sph.kernels import KERNELS
 from ..physics.neutrinos_lra import DeltaTotTable
 from ..fof.fof import fof
 
@@ -70,7 +77,14 @@ def load_cosmology(ps, hdr: SnapshotHeader, time_begin, units):
     return cp
 
 
+# the subgrid master switches of gas runs (ROADMAP A.8)
+_SUBGRID = ("CoolingOn", "StarformationOn", "WindOn", "BlackHoleOn",
+            "MetalReturnOn", "QSOLightupOn", "HeliumReionizationOn",
+            "ExcursionSetReionOn")
+
+
 def _read_particles(snap_path):
+    """(header, (pos, vel, ids, mass, ptype), the snapshot's blocks)."""
     hdr, blocks = read_snapshot(snap_path)
     pos_l, vel_l, ids_l, mass_l, type_l = [], [], [], [], []
     for t, props in sorted(blocks.items()):
@@ -89,7 +103,7 @@ def _read_particles(snap_path):
         type_l.append(np.full(n, t, dtype=np.int8))
     return hdr, (np.concatenate(pos_l), np.concatenate(vel_l),
                  np.concatenate(ids_l), np.concatenate(mass_l),
-                 np.concatenate(type_l))
+                 np.concatenate(type_l)), blocks
 
 
 def _init_checks(pos, ids, mass, cp, boxsize):
@@ -164,8 +178,10 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
         (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
         (bool(mesh_devices), "--mesh (the multi-device slab run)", "A.9")]
     if restart_flag not in (3, 4):
+        on = [name for name in _SUBGRID if ps.get_int(name)]
         refuse += [
-            (has_gas, "gas particles with HydroOn", "A.7"),
+            (has_gas and on, f"subgrid gas physics ({', '.join(on)})",
+             "A.8"),
             (ps.get_int("LightconeOn"), "LightconeOn", "A.8"),
             (ps.get_int("WritePlaneOn"), "WritePlaneOn (lensing planes)",
              "A.8"),
@@ -175,6 +191,112 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
         if cond:
             raise NotImplementedError(
                 f"gadget_main: {what} is not ported yet (ROADMAP {item})")
+
+
+def _restore_gas_state(sim, blocks, ptype, atime, cp):
+    """Restore the gas (and star/BH) state from snapshot blocks on a
+    resume (gadget_main.py:136-234 of the JAX package).
+
+    The reference's petaio read-side converters (petaio.cpp:858-865:
+    Entropy = (g-1) u / (Density a^-3)^(g-1), with the density read
+    first) and check_density_entropy's fixups (init.cpp:363-389), in host
+    float64 as the JAX package does them.  Its MinEgySpec floor is 0
+    without star formation (ROADMAP A.8 brings the other value).
+    Rows in `sim` are ordered by sorted ptype with the order within a
+    type kept, matching `blocks`."""
+    dev = sim.device
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    g = blocks[0]
+    ngas = int(sim.gas.ngas)
+    a3inv = 1.0 / atime ** 3
+    meanbar = cp.OmegaBaryon * cp.RhoCrit
+    dens = np.asarray(g["Density"], np.float64).copy()
+    bad = (dens <= 0) | ~np.isfinite(dens)
+    dens[bad] = meanbar
+    if bad.any():
+        print(f"Detected bad densities in {bad.sum()} particles on disc")
+    egyw = np.asarray(g.get("EgyWtDensity", dens), np.float64).copy()
+    badw = (egyw <= 0) | ~np.isfinite(egyw)
+    egyw[badw] = dens[badw]
+    u = np.asarray(g["InternalEnergy"], np.float64)
+    with np.errstate(invalid="ignore"):
+        ent = GAMMA_MINUS1 * u / (dens * a3inv) ** GAMMA_MINUS1
+    ent = np.where(~np.isfinite(ent) | (ent < 0), 0.0, ent)
+    gas = sim.gas
+    rep = dict(entropy=t(ent), density=t(dens), egy_wt_density=t(egyw))
+    for name, attr in (("ElectronAbundance", "ne"),
+                       ("StarFormationRate", "sfr"),
+                       ("Metallicity", "metallicity"),
+                       ("DelayTime", "delay_time")):
+        if name in g:
+            rep[attr] = t(g[name])
+    if "Generation" in g:
+        rep["generation"] = t(g["Generation"], np.int32)
+    if "SmoothingLength" in g:
+        hs = sim.particles.hsml.clone()
+        hs[:ngas] = t(g["SmoothingLength"])
+        sim.particles = sim.particles.replace(hsml=hs)
+    # star rows: formation time, birth metallicity, return budget; BH
+    # rows: mass and accretion rate
+    offs = {}
+    o = 0
+    for ty in sorted(set(ptype.tolist())):
+        n_t = int((ptype == ty).sum())
+        offs[ty] = (o, o + n_t)
+        o += n_t
+
+    def put(attr, lo, hi, vals):
+        a = rep.get(attr, getattr(gas, attr)).clone()
+        a[lo:hi] = t(vals)
+        rep[attr] = a
+
+    if 4 in blocks and 4 in offs:
+        s0, s1 = offs[4]
+        st = blocks[4]
+        for name, attr in (("StellarFormationTime", "birth_a"),
+                           ("Metallicity", "star_metallicity"),
+                           ("LastEnrichmentMyr", "last_enrich_myr"),
+                           ("TotalMassReturned", "total_returned")):
+            if name in st:
+                put(attr, s0, s1, st[name])
+        if "TotalMassReturned" in st:
+            # mass0 back-solved from the returned fraction
+            mnow = sim.particles.mass[s0:s1].cpu().numpy()
+            put("mass0", s0, s1, mnow / np.maximum(
+                1.0 - np.asarray(st["TotalMassReturned"], np.float32), 0.1))
+    if 5 in blocks and 5 in offs:
+        b0, b1 = offs[5]
+        for name, attr in (("BlackholeMass", "bh_mass"),
+                           ("BlackholeAccretionRate", "bh_mdot")):
+            if name in blocks[5]:
+                put(attr, b0, b1, blocks[5][name])
+    sim.gas = gas.replace(**rep)
+    sim._gas_entropy_is_u = False
+
+
+def _gas_physics(ps, cp, units, atime):
+    """(GasPhysics, u0): the SPH configuration of the paramfile and the
+    initial specific internal energy from InitGasTemp (CMB-derived when
+    negative, as the reference's init.cpp)."""
+    kern = {0: "cubic", 1: "quintic", 2: "quartic"}[
+        ps.get_enum("DensityKernelType")]
+    gp = GasPhysics(
+        density_independent_sph=bool(ps.get_int("DensityIndependentSphOn")),
+        eta=ps.get_double("DensityResolutionEta"),
+        ngb_deviation=ps.get_double("MaxNumNgbDeviation"),
+        art_bulk_visc=ps.get_double("ArtBulkViscConst"),
+        density_contrast_limit=ps.get_double("DensityContrastLimit"),
+        kernel=KERNELS[kern])
+    init_temp = ps.get_double("InitGasTemp")
+    if init_temp < 0:
+        init_temp = cp.CMBTemperature / atime
+    mw = 4.0 / (1 + 3 * HYDROGEN_MASSFRAC)
+    u0 = (BOLTZMANN * init_temp / mw / PROTONMASS / GAMMA_MINUS1
+          / units.UnitInternalEnergy_in_cgs)
+    return gp, u0
 
 
 def _build_nu_table(ps, cp, units, boxsize, nmesh, atime, restart_flag,
@@ -205,6 +327,49 @@ def _build_nu_table(ps, cp, units, boxsize, nmesh, atime, restart_flag,
         if nt.load(icfile):
             print(f"Restored neutrino delta_tot history from {icfile}")
     return nt
+
+
+def _gas_blocks(s, t, sel, a):
+    """The SPH blocks of type t's rows `sel` (host mask over all rows) at
+    scale factor a (gadget_main.py:1180-1218 of the JAX package): for gas
+    the smoothing length, densities, InternalEnergy from the entropy and
+    Density a^-3, and the subgrid fields; for stars and black holes their
+    bookkeeping.  Host numpy arithmetic, as the JAX package's."""
+    g = s.gas
+    d = {}
+    if t == 0:
+        ng = g.ngas
+        gsel = sel[:ng]
+
+        def host(x):
+            return x.cpu().numpy()[:ng][gsel]
+
+        dens = host(g.density)
+        entr = host(g.entropy)
+        d["SmoothingLength"] = host(s.particles.hsml)
+        d["Density"] = dens
+        d["EgyWtDensity"] = host(g.egy_wt_density)
+        a3inv = 1.0 / a ** 3
+        with np.errstate(invalid="ignore"):
+            u = (entr * np.maximum(dens * a3inv, 1e-35) ** GAMMA_MINUS1
+                 / GAMMA_MINUS1)
+        d["InternalEnergy"] = np.nan_to_num(u).astype(np.float32)
+        d["ElectronAbundance"] = host(g.ne)
+        d["StarFormationRate"] = host(g.sfr)
+        d["Metallicity"] = host(g.metallicity)
+        d["DelayTime"] = host(g.delay_time)
+        d["Generation"] = host(g.generation).astype(np.uint8)
+    elif t == 4:
+        for name, attr in (("StellarFormationTime", "birth_a"),
+                           ("Metallicity", "star_metallicity"),
+                           ("TotalMassReturned", "total_returned"),
+                           ("LastEnrichmentMyr", "last_enrich_myr")):
+            d[name] = getattr(g, attr).cpu().numpy()[sel].astype(np.float32)
+    elif t == 5:
+        d["BlackholeMass"] = g.bh_mass.cpu().numpy()[sel].astype(np.float32)
+        d["BlackholeAccretionRate"] = \
+            g.bh_mdot.cpu().numpy()[sel].astype(np.float32)
+    return d
 
 
 class _DeviceWalltime(Walltime):
@@ -302,7 +467,7 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         icfile = os.path.join(outdir, f"{ps.get_string('SnapshotFileBase')}"
                               f"_{snapnum:03d}")
 
-    hdr, (pos, vel, ids, mass, ptype) = _read_particles(icfile)
+    hdr, (pos, vel, ids, mass, ptype), snap_blocks = _read_particles(icfile)
     has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
     _refuse_unported(ps, restart_flag, mesh_devices, has_gas)
     units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
@@ -352,13 +517,31 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         gravity_kw["softening"] = (
             2.8 * frac * boxsize / np.cbrt(max(len(pos), 1)))
 
-    # every row runs as ptype DM, neutrino particles (type 2) included:
-    # they drift, are written and enter FOF as type 1, as in the JAX
-    # package's single-device run without gas (gadget_main.py:1117-1120,
-    # Simulation.from_arrays; ROADMAP C.4)
-    sim = Simulation.from_arrays(pos, vel, mass, ids, cp, boxsize, nmesh,
-                                 timeline, atime, tsp=tsp,
-                                 gravity_kw=gravity_kw, device=dev)
+    if has_gas:
+        # the types stay apart, gas rows first (Simulation.from_species);
+        # with star formation refused there are no spare star rows
+        gp, u0 = _gas_physics(ps, cp, units, atime)
+        species = [(int(ty), pos[ptype == ty], vel[ptype == ty],
+                    mass[ptype == ty], ids[ptype == ty])
+                   for ty in sorted(set(ptype.tolist()))]
+        sim = Simulation.from_species(
+            species, cp, boxsize, nmesh, timeline, atime, tsp=tsp,
+            gravity_kw=gravity_kw, gas_u0=u0, gas_physics=gp,
+            star_headroom=0, device=dev)
+        if 0 in snap_blocks and "InternalEnergy" in snap_blocks[0]:
+            # resuming from one of our snapshots (or a reference one):
+            # the gas state instead of the InitGasTemp cold start
+            _restore_gas_state(sim, snap_blocks, ptype, atime, cp)
+            print("Restored gas/star/BH state from snapshot")
+    else:
+        # every row runs as ptype DM, neutrino particles (type 2)
+        # included: they drift, are written and enter FOF as type 1, as
+        # in the JAX package's single-device run without gas
+        # (gadget_main.py:1117-1120, Simulation.from_arrays; ROADMAP C.4)
+        sim = Simulation.from_arrays(pos, vel, mass, ids, cp, boxsize,
+                                     nmesh, timeline, atime, tsp=tsp,
+                                     gravity_kw=gravity_kw, device=dev)
+    del snap_blocks
     sim.resumed = (restart_flag == 1)
     sim.hierarchical = bool(ps.get_int("SplitGravityTimestepsOn")
                             or ps.get_int("HierarchicalGravity"))
@@ -395,6 +578,8 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             totnum[t] = sel.sum()
             blocks[t] = {"Position": posn[sel], "Velocity": veln[sel],
                          "Mass": massn[sel], "ID": idsn[sel]}
+            if s.gas is not None:
+                blocks[t].update(_gas_blocks(s, t, sel, a))
         shdr = SnapshotHeader(
             TotNumPart=totnum,
             MassTable=np.zeros(6), Time=a, BoxSize=boxsize,
@@ -427,10 +612,15 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         npart_tot = int(mask.sum())
         ndm = int((p.ptype.cpu().numpy()[mask] == 1).sum())
         mean_sep = boxsize / np.cbrt(max(ndm, npart_tot, 1))
+        sfr = None
+        if s.gas is not None:
+            # the gas rows' star formation rates give the groups' (zero
+            # while star formation waits for ROADMAP A.8)
+            sfr = torch.nn.functional.pad(s.gas.sfr, (0, p.n - s.gas.ngas))
         groups = fof(s.output_ipos(), p.vel, p.mass, p.ptype, p.mask,
                      boxsize, mean_sep,
                      linking_length=ps.get_double("FOFHaloLinkingLength"),
-                     min_length=ps.get_int("FOFHaloMinLength"))
+                     min_length=ps.get_int("FOFHaloMinLength"), sfr=sfr)
         pig = os.path.join(outdir, f"{ps.get_string('FOFFileBase')}"
                            f"_{snap_counter[0] - 1:03d}")
         save_fof(pig, groups, hdr, a)

@@ -6,7 +6,8 @@ ParticleData: uint32 fields (`ipos`, `id_lo`, `id_hi`) become int32 bit
 patterns, the rest keep their dtype.  `window_from_numpy` turns a JAX
 PolyWindow's arrays into the port's PolyWindow.  `nu_table_from_numpy`
 turns a JAX DeltaTotTable's host state into the port's, on the port's
-Cosmology.  All three are exact.
+Cosmology.  `gas_state_from_numpy` turns a JAX GasState's arrays into
+the port's GasState.  All four are exact.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ._device import resolve_device
 from .core.particles import ParticleData, u32_numpy_to_i32
 from .gravity.shortrange import PolyWindow
 from .physics.neutrinos_lra import DeltaTotTable
+from .simulation_gas import GasState
 
 _U32_FIELDS = ("ipos", "id_lo", "id_hi")
 _DTYPES = {"vel": np.float32, "mass": np.float32, "ptype": np.int8,
@@ -68,3 +70,27 @@ def nu_table_from_numpy(d: dict, CP) -> DeltaTotTable:
             v = list(v)
         kw[f.name] = v
     return DeltaTotTable(CP=CP, **kw)
+
+
+def gas_state_from_numpy(d: dict, device=None) -> GasState:
+    """The port's GasState from a dict of the JAX GasState's fields as
+    numpy (`ngas` an int); None fields of the JAX state take the port's
+    initial values."""
+    dev = resolve_device(device)
+    ngas = int(d["ngas"])
+    ntot = len(np.asarray(d["birth_a"]))
+    init = GasState.create(ngas, np.zeros(ngas, np.float32), ntot=ntot,
+                           device=dev)
+    kw = {"ngas": ngas}
+    for f in dataclasses.fields(GasState):
+        if f.name == "ngas":
+            continue
+        v = d.get(f.name)
+        if v is None:
+            kw[f.name] = getattr(init, f.name)
+            continue
+        dtype = {torch.int32: np.int32, torch.bool: np.bool_}.get(
+            getattr(init, f.name).dtype, np.float32)
+        kw[f.name] = torch.from_numpy(
+            np.array(v, dtype=dtype, copy=True)).to(dev)
+    return GasState(**kw)

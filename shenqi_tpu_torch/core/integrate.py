@@ -1,5 +1,5 @@
 """Individual timesteps: criteria, bins, KDK kicks
-(shenqi_tpu/core/integrate.py:35-321 in torch, without the hydro parts).
+(shenqi_tpu/core/integrate.py:35-321 in torch).
 
 Host-side DriftKickTimes bookkeeping (Python ints on the 2^46-tick
 timeline) plus per-particle criteria and kicks on the device: the
@@ -9,6 +9,8 @@ by timebin.
 Criteria (timestep.cpp:99-137, 1012-1040):
   * gravity: dt = sqrt(2 ErrTolIntAccuracy atime eps / |a_phys|),
     eps = FORCE_SOFTENING/2.8, a_phys = (a_tree + a_pm)/atime^2
+  * hydro (gas): the Courant condition on the signal velocity and the
+    smoothing-length change rate
   * PM step: MaxRMSDisplacementFac hubble atime^2 min(asmth, dmean)
     / sqrt(<v^2>) per type, min over types
 """
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .timeline import TIMEBINS, TIMEBASE, Timeline, dti_from_timebin
+from ..utils.constants import GAMMA
 
 
 @dataclass
@@ -94,6 +97,17 @@ def gravity_dloga(accel_total, atime, hubble, softening,
     eps = softening / 2.8
     dt = torch.sqrt(2 * err_tol_int_acc * atime * eps / ac)
     return dt * hubble
+
+
+def hydro_dloga(hsml, max_signal_vel, dt_hsml, atime, hubble,
+                courant_fac):
+    """Courant + Hsml-change criteria; returns dloga."""
+    fac3 = atime ** (3 * (1 - GAMMA) / 2.0)
+    dt_courant = (2 * courant_fac * atime * hsml
+                  / (fac3 * torch.clamp(max_signal_vel, min=1e-35)))
+    dt_hsml_c = (courant_fac * atime * atime
+                 * torch.abs(hsml / (dt_hsml + 1e-20)))
+    return torch.minimum(dt_courant, dt_hsml_c) * hubble
 
 
 def long_range_dloga(vel, mass, ptype, alive, atime, CP, boxsize,
@@ -211,6 +225,24 @@ def kick_gravity(vel, accel, timebin, active_mask, gravkick_table):
     fac = gravkick_table[timebin.long()]
     fac = torch.where(active_mask, fac, 0.0)
     return vel + accel * fac[:, None]
+
+
+def kick_hydro(vel, entropy, hydro_accel, dt_entropy_rate, timebin,
+               is_gas, hydrokick_table, dt_entr_table, atime, max_gas_vel):
+    """Hydro kick + entropy update + the MaxGasVel cap for gas rows
+    (do_hydro_kick, timestep.cpp:988-998)."""
+    bin_i = timebin.long()
+    hk = torch.where(is_gas, hydrokick_table[bin_i], 0.0)
+    vel = vel + hk[:, None] * hydro_accel
+    # hard velocity limit
+    vv = torch.linalg.norm(vel, dim=-1)
+    over = is_gas & (vv / atime > max_gas_vel) & (vv > 0)
+    scale = torch.where(over, max_gas_vel * atime
+                        / torch.clamp(vv, min=1e-35), 1.0)
+    vel = vel * scale[:, None]
+    entropy = entropy + torch.where(is_gas, dt_entr_table[bin_i],
+                                    0.0) * dt_entropy_rate
+    return vel, entropy
 
 
 def kick_pm(vel, grav_pm, alive, fac):

@@ -55,7 +55,7 @@ def default_tbc(T: int, sub: int) -> int:
     return _round_tbc(T // sub + max(T // (4 * sub), 64))
 
 
-def grow_tier_caps(counts, cached, margin, bump):
+def grow_tier_caps(counts, cached, margin, bump, align: int = 128):
     """Grow-only tier caps with drift hysteresis: counts jitter a few
     units per step as particles move.  Sufficiency rule everywhere:
     need = count + 1."""
@@ -64,7 +64,7 @@ def grow_tier_caps(counts, cached, margin, bump):
     for c, cc in zip(counts, cached):
         need = int(c) + 1
         if need > cc:
-            g = _round_cap(need + margin)
+            g = _round_cap(need + margin, align=align)
             if cc:
                 g = max(g, cc + bump)       # growth event: headroom
         else:

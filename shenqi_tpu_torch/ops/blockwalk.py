@@ -39,6 +39,13 @@ class BlockLeaves(NamedTuple):
     leaf: torch.Tensor    # [P] int64 node ids
 
 
+def auto_block_level(n_targets: int, block: int) -> int:
+    """The Morton level with ~4 blocks of `block` targets per occupied
+    cell on average (ops/blockwalk.py:250 of the JAX package)."""
+    return max(1, min(8, round(math.log(max(n_targets, 8) / (4.0 * block),
+                                        8))))
+
+
 def make_blocks_from_tree(tree: Octree, n_targets: int, block: int,
                           boxsize):
     """Cell-anchored target blocks over the first n_targets sorted rows.
@@ -54,7 +61,7 @@ def make_blocks_from_tree(tree: Octree, n_targets: int, block: int,
     n = tree.ipos_s.shape[0]
     nt = min(n_targets, n)
     dev = tree.ipos_s.device
-    level = max(1, min(8, round(math.log(max(nt, 8) / (4.0 * block), 8))))
+    level = auto_block_level(nt, block)
     ipos = tree.ipos_s[:nt]
     c = lshr(ipos, 32 - level)
     gid = (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]

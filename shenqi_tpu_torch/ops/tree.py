@@ -15,11 +15,11 @@ segment_sum / segment_min in the JAX package):
             children    contiguous in the next level's segment ids
 
 Only the shallow-key path (nlevels <= MAX_DEPTH, one 30-bit key) and
-what FOF's neighbour traversal reads are ported: FOF builds its trees
-with nlevels = 8.  The centres of mass, sibling pointers, canonical-leaf
-flags and hsml maxima of the JAX tree serve the gravity walks, the
-sequential walk, the packed-source table and the SPH walks; they come
-with those (ROADMAP A.7, A.10).
+what the neighbour traversals of FOF and the SPH IC fixed point read
+are ported (with the sorted masses).  The centres of mass, sibling
+pointers, canonical-leaf flags and hsml maxima of the JAX tree serve
+the gravity walks, the sequential walk, the packed-source table and the
+symmetric SPH walks; they come with those (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ class Octree:
     order: torch.Tensor      # [N] int64 sort permutation (sorted <- original)
     ipos_s: torch.Tensor     # [N,3] int32 bits of the sorted positions
     root_child: int          # first node of level 1 (-1: the root is a leaf)
+    mass_s: torch.Tensor = None  # [N] f32 sorted masses, 0 for dead rows
 
 
 def _level_caps(n: int, nlevels: int):
@@ -157,4 +158,4 @@ def build_octree(ipos, mass, alive, boxsize, nlevels: int = 8,
                   mass=cat["mass"], pstart=cat["pstart"], pcount=pcount,
                   child=child, nchild=nchild, is_leaf=is_leaf,
                   valid=cat["valid"], order=order, ipos_s=ipos_s,
-                  root_child=int(child[0]))
+                  root_child=int(child[0]), mass_s=mass_s)

@@ -1,11 +1,13 @@
-"""DM-only TreePM simulation driver (shenqi_tpu/simulation.py:52-960 in
+"""TreePM + SPH simulation driver (shenqi_tpu/simulation.py:52-960 in
 torch): the reference main loop (run.cpp:331-822) with PM long-range
-gravity, the grid-stencil short-range force and individual timesteps.
+gravity, the grid-stencil short-range force, adiabatic SPH and
+individual timesteps.
 
   loop:
     ti_next = min active-bin kick time (clamped to PM step end)
-    drift ALL particles to ti_next
-    [forces: PM on PM steps; short range for the active set]
+    drift ALL particles to ti_next (and the gas smoothing lengths)
+    [forces: density + hydro for the active gas; PM on PM steps;
+     short range for the active set]
     apply_half_kick       (completes the previous half step)
     update_kick_times
     [PM step] apply_PM_half_kick  (completes the previous PM half)
@@ -14,11 +16,12 @@ gravity, the grid-stencil short-range force and individual timesteps.
     apply_half_kick       (starts the new half step)
     [PM step] apply_PM_half_kick  (starts the new PM half)
 
-The port runs DM with the stencil engine, both timestep schemes
+The port runs the stencil engine, both timestep schemes
 (`hierarchical`, Gadget-4 split gravity, is what the CLI turns on), the
-massive-neutrino linear response (`nu_table`), the random box offset and
-the human control interface (HCI).  Gas and the tree engines raise
-NotImplementedError.
+massive-neutrino linear response (`nu_table`), the random box offset,
+the human control interface (HCI) and adiabatic gas (`from_species`
+with a GasPhysics: simulation_gas.py).  The tree engines raise
+NotImplementedError; subgrid gas physics is refused by GasPhysics.
 """
 
 from __future__ import annotations
@@ -30,22 +33,22 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core.particles import (ParticleData, POS_SCALE, DM, u32_numpy_to_i32,
-                             wrap_i32)
+from .core.particles import (ParticleData, POS_SCALE, DM, GAS,
+                             u32_numpy_to_i32, wrap_i32)
 from .core.timeline import Timeline, TIMEBINS, dti_from_timebin, \
     round_down_power_of_two
 from .core.integrate import (DriftKickTimes, TimestepParams,
                              active_bins_mask, gravity_dloga,
                              long_range_dloga, assign_timebins,
-                             gravkick_tables, kick_gravity, kick_pm,
-                             is_timebin_active)
+                             gravkick_tables, kick_gravity, kick_hydro,
+                             kick_pm, hydro_dloga, is_timebin_active)
 from .core.step_protocol import run_protocol
 from .cosmology.background import Cosmology
 from .gravity.treepm import (GravityConfig, get_window_tables,
                              default_softening)
 from .gravity.pm import pm_forces, finalize_power, measure_cdm_power
 from .gravity.stencil import stencilgrav, stencilgrav_fused
-from .utils.constants import CM_PER_MPC
+from .utils.constants import CM_PER_MPC, GAMMA_MINUS1
 
 
 def _drift(ipos, vel, alive, driftfac, pos_scale_over_box):
@@ -102,6 +105,11 @@ class Simulation:
     # massive-neutrino linear response (physics/neutrinos_lra
     # DeltaTotTable), set by the CLI when MassiveNuLinRespOn
     nu_table: object = None
+    # adiabatic gas (simulation_gas.GasState / GasPhysics); the entropy
+    # holds the initial u until the first density pass converts it
+    gas: object = None
+    gas_physics: object = None
+    _gas_entropy_is_u: bool = False
 
     def __post_init__(self):
         if self.gravity.engine != "stencil":
@@ -197,6 +205,74 @@ class Simulation:
         sim.n_real = n
         return sim
 
+    @classmethod
+    def from_species(cls, species, CP, boxsize, nmesh, timeline, atime,
+                     tsp=None, gravity_kw=None, gas_u0=None,
+                     gas_physics=None, star_headroom: int = 0,
+                     device=None):
+        """Build a simulation from per-type particle sets.
+
+        species: list of (ptype, pos, vel, mass, ids); gas (type 0) rows
+        are placed first so the gas fields align to the array prefix.
+        gas_u0: the initial specific internal energy of the gas (internal
+        units), converted to entropy after the first density pass."""
+        species = sorted(species, key=lambda s_: s_[0])
+        pos = np.concatenate([s_[1] for s_ in species])
+        vel = np.concatenate([s_[2] for s_ in species])
+        mass = np.concatenate([
+            np.full(len(s_[1]), s_[3]) if np.ndim(s_[3]) == 0 else s_[3]
+            for s_ in species])
+        ids = np.concatenate([s_[4] for s_ in species])
+        ptypes = np.concatenate([np.full(len(s_[1]), s_[0], dtype=np.int8)
+                                 for s_ in species])
+        sim = cls.from_arrays(pos, vel, mass, ids, CP, boxsize, nmesh,
+                              timeline, atime, tsp=tsp,
+                              gravity_kw=gravity_kw,
+                              extra_capacity=star_headroom, device=device)
+        dev = sim.device
+        ptype_arr = np.full(sim.particles.n, DM, dtype=np.int8)
+        ptype_arr[:len(ptypes)] = ptypes
+        sim.particles = sim.particles.replace(
+            ptype=torch.from_numpy(ptype_arr).to(dev))
+        ngas = int((ptypes == GAS).sum())
+        if ngas > 0:
+            from .simulation_gas import GasState
+            # initial hsml guess: twice the mean gas separation
+            sep = boxsize / max(ngas, 1) ** (1.0 / 3)
+            hsml0 = sim.particles.hsml.clone()
+            hsml0[:ngas] = float(np.float32(2.0 * sep))
+            sim.particles = sim.particles.replace(hsml=hsml0)
+            ent0 = np.full(ngas, 1.0 if gas_u0 is None else gas_u0,
+                           np.float32)
+            sim.gas = GasState.create(ngas, ent0, ntot=sim.particles.n,
+                                      device=dev)
+            sim._gas_entropy_is_u = gas_u0 is not None
+            sim.gas_physics = gas_physics
+        return sim
+
+    def init_gas_entropy(self):
+        """After the first density pass, convert the stored u0 into
+        entropy (init.cpp uniform-temperature setup).  With
+        pressure-entropy SPH the conversion is a fixed point, entropy
+        depending on EgyWtDensity and EgyWtDensity on entropy:
+        setup_density_indep_entropy (init.cpp:403-449); otherwise one
+        A = u (g-1)/(rho a^-3)^(g-1)."""
+        if self.gas is None or not self._gas_entropy_is_u:
+            return
+        gp = self.gas_physics
+        u0 = self.gas.entropy    # holds u until this conversion
+        if gp is not None and gp.density_independent_sph:
+            # u0 is uniform at init; the JAX package takes its median
+            u_init = float(np.median(u0.cpu().numpy()))
+            self.gas = gp.setup_density_indep_entropy(self, self.gas,
+                                                      u_init)
+        else:
+            a3inv = 1.0 / self.atime() ** 3
+            rho = torch.clamp(self.gas.density, min=1e-35) * a3inv
+            ent = u0 * GAMMA_MINUS1 / torch.pow(rho, GAMMA_MINUS1)
+            self.gas = self.gas.replace(entropy=ent)
+        self._gas_entropy_is_u = False
+
     # ---------- pieces ----------
     def atime(self) -> float:
         return self.timeline.atime_from_ti(self.times.ti_current)
@@ -208,9 +284,22 @@ class Simulation:
                                                ti_next)
         p = self.particles
         # f32 scalars, as the JAX package passes them
-        self.particles = p.replace(ipos=_drift(
-            p.ipos, p.vel, p.mask, float(np.float32(fac)),
+        fac32 = float(np.float32(fac))
+        p = p.replace(ipos=_drift(
+            p.ipos, p.vel, p.mask, fac32,
             float(np.float32(POS_SCALE / self.boxsize))))
+        if self.gas is not None:
+            # predict smoothing lengths through the drift (drift.cpp:55-66,
+            # Gadget-4 style: Hsml += DtHsml * ddrift, capped), so the
+            # density bisection starts near its answer
+            ng = self.gas.ngas
+            h0 = p.hsml[:ng]
+            h1 = h0 + self.gas.dt_hsml * fac32
+            h1 = torch.minimum(torch.maximum(h1, 0.5 * h0), 2.0 * h0)
+            is_gas = (p.ptype[:ng] == GAS) & p.mask[:ng]
+            p = p.replace(hsml=torch.cat([
+                torch.where(is_gas & (h0 > 0), h1, h0), p.hsml[ng:]]))
+        self.particles = p
         if self.on_drift is not None:
             self.on_drift(self, a0, self.timeline.atime_from_ti(ti_next))
         self.times.ti_current = ti_next
@@ -457,12 +546,24 @@ class Simulation:
         return bad
 
     def _apply_half_kick(self, skip_grav: bool = False):
-        gk, _, _ = gravkick_tables(self.CP, self.timeline, self.times,
-                                   device=self.device)
+        """The tree-gravity half kick (unless the hierarchy kicks by
+        level) and, for the gas rows, the hydro kick, the MaxGasVel cap
+        and the entropy update (do_hydro_kick)."""
+        gk, hk, dte = gravkick_tables(self.CP, self.timeline, self.times,
+                                      device=self.device)
         p = self.particles
-        if not skip_grav:
-            self.particles = p.replace(vel=kick_gravity(
-                p.vel, p.grav_accel, p.timebin, p.mask, gk))
+        vel = p.vel if skip_grav else kick_gravity(
+            p.vel, p.grav_accel, p.timebin, p.mask, gk)
+        if self.gas is not None:
+            ng = self.gas.ngas
+            vg, ent = kick_hydro(
+                vel[:ng], self.gas.entropy, self.gas.hydro_accel,
+                self.gas.dt_entropy, p.timebin[:ng],
+                (p.mask & (p.ptype == GAS))[:ng], hk, dte, self.atime(),
+                self.tsp.MaxGasVel)
+            vel = torch.cat([vg, vel[ng:]])
+            self.gas = self.gas.replace(entropy=ent)
+        self.particles = p.replace(vel=vel)
 
     def _apply_pm_half_kick(self):
         t0 = self.times.pm_kick
@@ -501,11 +602,22 @@ class Simulation:
         step's opening criterion) from the total acceleration."""
         p = self.particles
         atime = self.atime()
+        hubble = float(self.CP.hubble_function(atime))
         accel_tot = p.grav_accel + p.grav_pm
-        dloga = gravity_dloga(accel_tot, atime,
-                              float(self.CP.hubble_function(atime)),
+        dloga = gravity_dloga(accel_tot, atime, hubble,
                               self.gravity.softening,
                               self.tsp.ErrTolIntAccuracy)
+        if self.gas is not None:
+            # the hydro Courant limit folded into the gas rows' one bin
+            # (simulation.py:592-601 and 726-736 of the JAX package)
+            ng = self.gas.ngas
+            dl_h = hydro_dloga(p.hsml[:ng], self.gas.max_signal_vel,
+                               self.gas.dt_hsml, atime, hubble,
+                               self.tsp.CourantFac)
+            dg = dloga[:ng]
+            dloga = torch.cat([torch.where(p.ptype[:ng] == GAS,
+                                           torch.minimum(dg, dl_h), dg),
+                               dloga[ng:]])
         return dloga, torch.linalg.norm(accel_tot, dim=-1) / self.gravity.G
 
     def _find_timesteps(self, first_step: bool):
@@ -545,10 +657,25 @@ class Simulation:
         self._drift_all(ti_next)
 
     def proto_forces(self, is_pm, first):
+        """Gas first (density with adaptive hsml + hydro,
+        run.cpp:482-505), then gravity."""
         if is_pm:
             # the reference redraws the box shift at each full domain
             # decomposition, i.e. every PM step (run.cpp:426-428)
             self._apply_random_offset()
+        if self.gas is not None and self.gas_physics is not None:
+            # density and hydro take only the active-bin gas
+            # (run.cpp:488-505 ActiveParticles); the first step takes all
+            self.gas = self.gas_physics.density_hydro(
+                self, self.gas, active=None if first
+                else self._active_mask())
+            if self._gas_entropy_is_u:
+                # first pass: convert the initial u to entropy.  This
+                # pass's hydro force took u as the entropy, as the JAX
+                # package's does (simulation.py:878-881; ROADMAP C.4)
+                self.init_gas_entropy()
+            self._wt("SPH")
+        if is_pm:
             self._compute_pm()
             self._wt("PMgrav")
         if self.hierarchical and not first:
@@ -560,13 +687,25 @@ class Simulation:
         self._wt("Tree")
 
     def proto_sources(self, is_pm, first):
-        """No source terms without gas."""
+        """Strang-split sources (run.cpp:604-681).  Adiabatic gas has
+        none: GasPhysics refuses every subgrid switch (ROADMAP A.8), and
+        with all of them off each of the JAX package's source stages
+        returns its input."""
+        return
+
+    def _slots_gc(self):
+        # reclaim dead rows before writing (run.cpp:704 runs slots_gc
+        # ahead of the snapshot)
+        if self.gas is not None and self.gas_physics is not None:
+            self.gas_physics.slots_gc(self, self.gas)
 
     def proto_snapshot(self, atime):
+        self._slots_gc()
         if self.on_snapshot:
             self.on_snapshot(self, atime)
 
     def proto_checkpoint(self, cb, atime):
+        self._slots_gc()
         cb(self, atime)
 
     def proto_pre_timestep(self):

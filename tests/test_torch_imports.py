@@ -36,7 +36,10 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("simulation", "ops.p2p", "cli.gadget_main",
                  "cli.genic_main", "fof.fof", "io.snapshot", "physics",
-                 "physics.neutrinos_lra", "genic.thermal"):
+                 "physics.neutrinos_lra", "genic.thermal",
+                 "simulation_gas", "ops.treewalk", "sph.kernels",
+                 "sph.density", "sph.stencil_density", "sph.hydro",
+                 "sph.stencil_hydro"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
