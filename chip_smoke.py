@@ -42,9 +42,9 @@ BUDGET_S for the whole run, the kernel build included:
           output; every launch shape the run gave the pair kernel
           against the plain version, a second launch's bits and its
           bound, as in `kernel`
-  dmsmall dm-small as its paramfile stands: 64^3, box 64000 kpc/h, mesh
-          128, z = 9 to a = 0.25 with FOF at 0.15, 0.2, 0.25 (the EH
-          table for its CLASS one); the bins and level calls over the
+  dmsmall dm-small as its paramfile stands but for its end: 64^3, box
+          64000 kpc/h, mesh 128, z = 9 to a = 0.2 (0.25 in dm-small) with
+          FOF at 0.15 and 0.2 (the EH table for its CLASS one); the bins and level calls over the
           run, the cost of a level call by its targets, host syncs per
           step (torch's sync debug mode), each FOF's groups, stages and
           peak memory, the momentum change, and every launch shape
@@ -73,15 +73,29 @@ BUDGET_S for the whole run, the kernel build included:
           syncs and peak memory; every launch shape against the plain
           version
   gas128  the same at 2 x 128^3 particles: genic_main, the IC entropy
-          fixed point and the first 3 loop passes, the same records, and
+          fixed point and the first loop pass, the same records, and
           one all-active SPH pass under torch.profiler by operation group
+  stars   star-small (validation/star_small.py:36-77): 64^3 gas + 64^3
+          DM, box 5 Mpc/h, z = 9, CoolingOn, StarformationOn, WindOn
+          (ofjt10), MetalReturnOn, pressure-entropy SPH, FOF at each
+          output, no TREECOOL; cuts: BlackHoleOn 0, the EH table for
+          class_pk_9.dat, the run ends at STARS_RUNS' TimeMax.  genic_main,
+          the run, a RestartFlag 1 resume for one step; checks: stars
+          formed (the first one's a printed against star-small's 0.115,
+          STARS_FIRST_BY), sfr.txt's 8 columns, wind kicks, metal returned, gas
+          metallicity, total mass within 1e-6, every gas and star field
+          finite (entropy, density positive), every star in a PIG group,
+          the star rows restored exactly on the resume, every launch shape
+          against the plain version; per step the stages, stars formed
+          (split, whole), wind kicks, metal-return stars, host syncs; peak
+          memory; one source step split by piece and under torch.profiler
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`slice`, `dmsmall`, `nu`, `gas` and `gas128`, with the row of its
-largest launch shape),
+`slice`, `dmsmall`, `nu`, `gas`, `gas128` and `stars`, with the row of
+its largest launch shape),
 the JSON kernel table (the `cli` run's launches and largest shape), the
 card's name and power limit, and the run's result as one JSON object.
 `--steps-log PATH` appends dm-small's per-step record (bins, force
@@ -109,15 +123,38 @@ BUDGET_S = 560.0
 REHEARSAL_BUDGET_S = 1500.0
 # travis-hydro (validation/travis.py:38-98): z = 99 to TimeMax 0.015 with
 # its three outputs, then a resume from the last one with a later output;
-# at 128^3 the IC fixed point and the first loop passes
+# at 128^3 the IC fixed point and the first loop pass (3 until the
+# `stars` phase needed the budget)
 GAS_A_IC = 0.01
 GAS_RUNS = (("0.01,0.012,0.015", 0.015), ("0.01,0.012,0.015,0.016", 0.016))
-GAS128_STEPS = 3
-# dm-small runs to a = 0.25 (validation/dm_small.py:44-59); the neutrino
+GAS128_STEPS = 1
+# dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to 0.2
+# to leave the budget to `stars` (0.25 until then); the neutrino
 # run to its first output, then resumes from it for one step (a
 # paramfile with a later second output, as a user extends a run)
-DMSMALL_TIMEMAX = 0.25
+DMSMALL_TIMEMAX = 0.2
 NU_RUNS = (("0.0102", 0.0102), ("0.0102,0.0104", 0.0104))
+# star-small (validation/star_small.py:36-77) from z = 9 to the first
+# output after stars have formed and metal return has acted, then a resume
+# from it with a later output.  With the EH table the first star formed at
+# a = 0.11669 on the card, the first metal returned at 0.11724 (its first
+# runs: the star-forming gas appears at a = 0.110, where the JAX package's
+# run on the reference's CLASS table had it at 0.1025,
+# validation/NOTES_star_small_r2.md), so the run ends at the output 0.118;
+# star-small's own criterion, a star before 0.115 (check_results.py), is
+# printed against the run's first star
+STARS_RUNS = (("0.105,0.11,0.115,0.118", 0.118),
+              ("0.105,0.11,0.115,0.118,0.119", 0.119))
+STARS_FIRST_BY = 0.115
+# the CPU rehearsal's 16^3 resolves no gas dense enough for the SF
+# threshold, nor halos for FOF: it lowers the thresholds, and takes the
+# cubic kernel (the metal return's weight sums are cubic, ROADMAP C.4, so
+# the mass balance is not blurred by the rehearsal's far more numerous
+# stars), to check the flow to a = 0.104; the card runs star-small as its
+# paramfile stands
+STARS_REHEARSAL = ("CritPhysDensity = 1e-5\nCritOverDensity = 1.0\n"
+                   "DensityKernelType = cubic\n")
+STARS_REHEARSAL_RUNS = (("0.102,0.104", 0.104), ("0.102,0.104,0.105", 0.105))
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12       # HBM3
 # the clock of that f32 rate: 132 SMs x 128 FMA lanes x 2 flops
@@ -286,6 +323,50 @@ MNut = 0.133333333333
 FileWithTransferFunction = {tk}
 """
 
+
+# star-small (validation/star_small.py:36-77) as the port runs it: the EH
+# table for class_pk_9.dat (normalized as dm-small's), BlackHoleOn 0
+# (ROADMAP A.8), no TreeCoolFile as in the example; the shortened
+# OutputList and TimeMax are STARS_RUNS'
+_GENIC_STARS = """
+OutputDir = {out}/IC
+FileBase = IC
+Ngrid = {ng}
+BoxSize = 5000
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+ProduceGas = 1
+HubbleParam = 0.7
+Redshift = 9
+WhichSpectrum = 2
+FileWithInputSpectrum = {pk}
+Sigma8 = -1
+InputPowerRedshift = 0
+DifferentTransferFunctions = 0
+UsePeculiarVelocity = 1
+Seed = 181170
+UnitaryAmplitude = 1
+"""
+
+_GADGET_STARS = """
+InitCondFile = {ic}
+OutputDir = {out}
+OutputList = {outputs}
+TimeLimitCPU = 43000
+TimeMax = {a}
+Omega0 = 0.288
+MassiveNuLinRespOn = 0
+HydroOn = 1
+CoolingOn = 1
+StarformationOn = 1
+DensityIndependentSphOn = 1
+SnapshotWithFOF = 1
+PartAllocFactor = 2.0
+BlackHoleOn = 0
+MetalReturnOn = 1
+WindOn = 1
+"""
 
 # the reference's travis CI example (validation/travis.py:38-98) as the
 # port runs it: adiabatic gas (the subgrid switches off, their files
@@ -496,6 +577,9 @@ class Smoke:
         self.n_gas, self.n_gas128 = (32, 16) if rehearsal else (64, 128)
         self.cli_launches = self.dmsmall_launches = self.nu_launches = 0
         self.gas_launches = self.gas128_launches = 0
+        self.n_stars = 16 if rehearsal else 64
+        self.budget = REHEARSAL_BUDGET_S if rehearsal else BUDGET_S
+        self.stars_launches, self.stars_row = 0, {}
         self.cli_row, self.dmsmall_row, self.nu_row = {}, {}, {}
         self.gas_row, self.gas128_row = {}, {}
         self.steps_log = None
@@ -1166,9 +1250,9 @@ class Smoke:
     def dmsmall(self):
         """dm-small as its paramfile stands (validation/dm_small.py:24-59):
         genic_main, then gadget_main RestartFlag 2 from z = 9 to
-        DMSMALL_TIMEMAX with OutputList 0.15,0.2,0.25 and FOF at each
-        output, at the CLI defaults (hierarchical gravity); the EH table
-        in place of class_pk_9.dat."""
+        DMSMALL_TIMEMAX with dm-small's OutputList 0.15,0.2,0.25 and FOF
+        at each output it reaches, at the CLI defaults (hierarchical
+        gravity); the EH table in place of class_pk_9.dat."""
         import tempfile
         tmp = tempfile.mkdtemp(prefix="shenqi_dmsmall_")
         try:
@@ -1724,12 +1808,12 @@ class Smoke:
         self.gas128_row = self._check_shapes(rec.shapes, "gas128")
         self._sph_profile(sim)
 
-    def _sph_profile(self, sim):
-        """One all-active density + hydro pass of the 128^3 state: host
+    def _sph_profile(self, sim, phase="gas128"):
+        """One all-active density + hydro pass of a run's end state: host
         clock, then torch.profiler device time by operation group and the
         device's busy share."""
         if self.rehearsal:
-            say("gas128", "SPH profile skipped in the CPU rehearsal")
+            say(phase, "SPH profile skipped in the CPU rehearsal")
             return
         from torch.profiler import profile, ProfilerActivity
         from shenqi_tpu_torch.sph import stencil_density as sd
@@ -1749,9 +1833,6 @@ class Smoke:
             walks.append((a[1].shape[0], kw.get("sub", 32)))
             return fn(*a, **kw)
 
-        with _Wrap(sd, "stencil_density_walk", through=note):
-            one_pass()
-        n_cover = sum(1 for _, sub in walks if sub == 1)
         # host clock with a synchronize around each piece: the pair passes
         # (_sph_eval, _hydro_eval, _hydro_long_eval) against the stencil
         # bookkeeping (sub-blocks, classification, tables)
@@ -1760,33 +1841,31 @@ class Smoke:
                   (sh, "_hydro_count"), (sd, "build_grid_sph"),
                   (sh, "build_grid_hydro")]
         wraps = [_Wrap(m, n, sync=self._sync) for m, n in pieces]
-        for w in wraps:
-            w.__enter__()
-        try:
-            split_wall = one_pass()
-        finally:
+        with _Wrap(sd, "stencil_density_walk", through=note):
             for w in wraps:
-                w.__exit__(None, None, None)
+                w.__enter__()
+            try:
+                split_wall = one_pass()
+            finally:
+                for w in reversed(wraps):
+                    w.__exit__(None, None, None)
+        n_cover = sum(1 for _, sub in walks if sub == 1)
         pair = sum(w.seconds for w in wraps[:3]) * 1e3
         rest = split_wall - sum(w.seconds for w in wraps) * 1e3
-        say("gas128", f"all-active SPH pass by piece (a synchronize around "
+        say(phase, f"all-active SPH pass by piece (a synchronize around "
             f"each): {split_wall:.1f} ms = "
             + ", ".join(f"{n} {w.seconds * 1e3:.1f} ms in {len(w.each)} "
                         f"calls" for (_, n), w in zip(pieces, wraps))
             + f", the rest (predictions, the hsml update, scatters, "
             f"pressure, Balsara) {rest:.1f} ms; the pair passes "
             f"{pair:.1f} ms, {100 * pair / split_wall:.1f}% of the pass")
-        wall = one_pass()
+        wall = split_wall
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             one_pass()
         groups = {}
-        rows = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us <= 0:
-                continue
-            k = e.key.lower()
+        rows = _device_rows(prof)
+        for ms_, _, key in rows:
+            k = key.lower()
             g = ("sort" if ("sort" in k or "radix" in k) else
                  "gather/scatter" if any(w in k for w in (
                      "scatter", "index", "gather")) else
@@ -1794,10 +1873,9 @@ class Smoke:
                  "reduce" if "reduce" in k else
                  "copy" if ("copy" in k or "memcpy" in k or "memset" in k)
                  else "elementwise" if "elementwise" in k else "other")
-            groups[g] = groups.get(g, 0.0) + us / 1e3
-            rows.append((us / 1e3, e.count, e.key))
+            groups[g] = groups.get(g, 0.0) + ms_
         busy = sum(groups.values())
-        say("gas128", f"all-active SPH pass ({walks[0][0] if walks else 0} "
+        say(phase, f"all-active SPH pass ({walks[0][0] if walks else 0} "
             f"targets, {len(walks) - n_cover} density walks, {n_cover} "
             f"cover-patch walks): {wall:.1f} ms; device busy {busy:.1f} ms = "
             f"{100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%);"
@@ -1805,7 +1883,329 @@ class Smoke:
                                      sorted(groups.items(),
                                             key=lambda x: -x[1])))
         for ms_, cnt, key in sorted(rows, reverse=True)[:8]:
-            say("gas128", f"  {ms_:9.3f} ms {cnt:6d}x {key[:90]}")
+            say(phase, f"  {ms_:9.3f} ms {cnt:6d}x {key[:90]}")
+
+    # -------------------------------------------------------------- stars
+    def stars(self):
+        """star-small (validation/star_small.py:36-77): genic_main with
+        ProduceGas, then gadget_main RestartFlag 2 from z = 9 with
+        CoolingOn, StarformationOn, WindOn (ofjt10), MetalReturnOn,
+        pressure-entropy SPH and FOF at each output, to STARS_RUNS[0]; a
+        RestartFlag 1 resume from the last output for one step; one source
+        step profiled.  Cuts: BlackHoleOn 0 (ROADMAP A.8's black holes;
+        the reference seeds its first at a = 0.14-0.15); the EH table,
+        normalized as `dmsmall`'s, for class_pk_9.dat; the run ends at
+        STARS_RUNS[0][1] instead of 0.2 (OutputList cut to match); no
+        TreeCoolFile, as in the example."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_stars_")
+        try:
+            self._stars(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _stars(self, tmp):
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        ng = self.n_stars
+        pk = os.path.join(tmp, "pk_eh.txt")
+        _eh_table(pk)
+        gp = os.path.join(tmp, "p.genic")
+        with open(gp, "w") as f:
+            f.write(_GENIC_STARS.format(out=tmp, ng=ng, pk=pk))
+        ic = os.path.join(tmp, "IC", "IC")
+        out = os.path.join(tmp, "output")
+        pps = []
+        runs = STARS_REHEARSAL_RUNS if self.rehearsal else STARS_RUNS
+        for i, (outputs, amax) in enumerate(runs):
+            pps.append(os.path.join(tmp, f"p{i}.gadget"))
+            with open(pps[-1], "w") as f:
+                f.write(_GADGET_STARS.format(ic=ic, out=out,
+                                             outputs=outputs, a=amax)
+                        + (STARS_REHEARSAL if self.rehearsal else ""))
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        genic_main.run_genic(gp, device=dev)
+        say("stars", f"genic_main Ngrid {ng} gas + DM ({2 * ng ** 3} "
+            f"particles), box 5000 kpc/h, z = 9: "
+            f"{time.perf_counter() - t:.2f} s")
+        hdr, blocks = read_snapshot(ic)
+        m_ic = sum(float(np.sum(blocks[t_]["Mass"], dtype=np.float64))
+                   if "Mass" in blocks[t_] else
+                   hdr.MassTable[t_] * len(blocks[t_]["ID"])
+                   for t_ in blocks)
+        del blocks
+
+        # the main path: counts set to 0 just before, read just after
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        live = {"t": t, "sim": None}
+
+        def step_line(fn, wt, fd, a):
+            # one line as each step ends (host values only: no sync), and
+            # the budget
+            sim_ = live["sim"]
+            now = time.perf_counter()
+            say("stars", f"  live: step {sim_.step_count if sim_ else '-'} "
+                f"to a={a:.5f} in {now - live['t']:.2f} s, "
+                f"{len(getattr(sim_, 'star_formation_times', []))} stars so"
+                f" far; " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      sorted(wt.step_acc.items())))
+            live["t"] = now
+            check_budget("stars run", self.budget)
+            return fn(wt, fd, a)
+
+        def catch(fn, sim_, *a, **kw):
+            live["sim"] = sim_
+            return fn(sim_, *a, **kw)
+
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        with _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                _Wrap(gadget_main._DeviceWalltime, "write_cpu_log",
+                      through=step_line), \
+                _Wrap(gadget_main.Simulation, "run", through=catch), \
+                _StarRecorder() as srec, _SphRecorder(self._sync) as sph, \
+                _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            sim = gadget_main.run_gadget(pps[0], 2, device=dev)
+        t2 = time.perf_counter() - t
+        self.stars_launches = p2p_blocked.launches
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        steps = self._run_steps(out, sim)
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        per = srec.per_step()
+        say("stars", f"gadget_main RestartFlag 2, {2 * ng ** 3} particles, "
+            f"to a={sim.atime():.5f}: {t2:.2f} s, {len(steps) - 1} steps, "
+            f"{len(rec.calls)} force calls, {len(sim.power_history)} PM "
+            f"steps; stage totals " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.stars_launches} in "
+            f"{len(rec.shapes)} shapes; peak device memory {mem:.2f} GiB")
+        syncs = np.diff([0] + rec.syncs) if rec.syncs else []
+        for i, (a, stages) in enumerate(steps):
+            st_ = per.get(i, {})
+            say("stars", f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: stars formed {st_.get('split', 0)} split + "
+                f"{st_.get('whole', 0)} whole, {st_.get('sf_rows', 0)} "
+                f"star-forming rows, wind kicks {st_.get('kicks', 0)}, "
+                f"metal return {st_.get('mr_stars', 0)} active stars "
+                f"returning {st_.get('returned', 0.0):.4g}; host syncs "
+                + (f"{syncs[i]}" if i < len(syncs) else "-")
+                + "; stages " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in sorted(stages.items())))
+        if len(syncs):
+            say("stars", f"host syncs per step (torch's sync debug mode): "
+                f"mean {np.mean(syncs):.1f}, max {np.max(syncs)}")
+        walks = [w for ps_ in sph.passes for w in ps_["walks"]]
+        full = [sec for n, sec in walks if n > ng ** 3 // 2]
+        say("stars", f"SPH: {len(sph.passes)} passes, {len(walks)} density "
+            f"walks ({len(full)} of over half the gas, "
+            f"{np.sum(full) if full else 0:.2f} s; the rest "
+            f"{sum(sec for _, sec in walks) - np.sum(full):.2f} s), "
+            f"density iterations per pass "
+            f"{_histogram([ps_['niter'] for ps_ in sph.passes])}, cover "
+            f"patches {sum(p_['cover_s'] for p_ in sph.passes):.2f} s, "
+            f"hydro {sum(p_['hydro_s'] for p_ in sph.passes):.2f} s, "
+            f"{sum(p_['hydro_cover'] for p_ in sph.passes)} hydro cover "
+            f"sub-blocks, {sum(p_['long_reach'] for p_ in sph.passes)} "
+            f"long-reach sources")
+        born = list(getattr(sim, "star_formation_times", []))
+        tot_s = srec.totals()
+        say("stars", f"stars formed {len(born)} ({tot_s['split']} split, "
+            f"{tot_s['whole']} whole), the first at a="
+            + (f"{min(born):.5f}" if born else "-")
+            + f"; wind kicks {tot_s['kicks']}; metal-return calls "
+            f"{tot_s['mr_calls']} with {tot_s['mr_star_lanes']} active-star "
+            f"lanes, returned {tot_s['returned']:.6g}, gas received "
+            f"{tot_s['received']:.6g} (the weights' cubic sums against the "
+            f"run's kernel, ROADMAP C.4)")
+        for g_, _ in fofw.calls:
+            say("stars", f"FOF at an output: {g_.ngroups} groups, "
+                f"{int(g_.length_by_type[:, 4].sum()) if g_.ngroups else 0}"
+                f" star rows in groups; " + _fof_line(g_.stats))
+        p = sim.particles
+        m_end = float(p.mass.double()[p.mask].sum())
+        dm_rel = abs(m_end - m_ic) / m_ic
+        say("stars", f"total mass {m_end:.9g} against the ICs' {m_ic:.9g}: "
+            f"relative change {dm_rel:.3e} (limit 1e-6)")
+        # the checks of the run (validation/star_small.py's criteria that
+        # a run to this a can meet)
+        if born:
+            say("stars", f"the first star at a={min(born):.5f}: star-small's"
+                f" criterion, before a = {STARS_FIRST_BY} "
+                f"(check_results.py, met on the reference's CLASS table), "
+                + ("met" if min(born) < STARS_FIRST_BY else
+                   "not met with the EH table"))
+        if not born:
+            raise SmokeFailure("no star formed in the star-small run")
+        if tot_s["kicks"] < 1:
+            raise SmokeFailure("no wind kick in the star-small run")
+        if not tot_s["returned"] > 0:
+            raise SmokeFailure("no metal-return call returned mass")
+        if not dm_rel < 1e-6:
+            raise SmokeFailure(f"total mass changed by {dm_rel:.3e}")
+        if abs(sim.atime() - runs[0][1]) > 1e-6:
+            raise SmokeFailure(f"star-small ended at a={sim.atime()}")
+        lines = [ln.split() for ln in open(os.path.join(out, "sfr.txt"))
+                 if not ln.startswith("#")]
+        say("stars", f"sfr.txt: {len(lines)} lines, the last "
+            + (" ".join(lines[-1]) if lines else "-"))
+        if not lines or any(len(ln) != 8 for ln in lines):
+            raise SmokeFailure("sfr.txt has no line in the 8-column format")
+        n_out = len(runs[0][0].split(","))
+        if len(fofw.calls) != n_out:
+            raise SmokeFailure("star-small ran FOF at other than its outputs")
+        for i in range(n_out):
+            self._star_fields_check(os.path.join(out, f"PART_{i:03d}"),
+                                    os.path.join(out, f"PIG_{i:03d}"))
+        self._check_calls("stars", rec)
+        self._stars_profile(sim, float(lines[-1][5]))
+        del sim
+
+        # RestartFlag 1 from the last output, one step on: the star rows
+        # restored exactly from the snapshot's star blocks
+        last = os.path.join(out, f"PART_{n_out - 1:03d}")
+        _, saved = read_snapshot(last)
+        got = {}
+
+        def spy(fn, sim_, *a, **kw):
+            fn(sim_, *a, **kw)
+            g = sim_.gas
+            rows = torch.nonzero(sim_.particles.ptype == 4).squeeze(1)
+            got.update({k: getattr(g, k)[rows].cpu().numpy() for k in (
+                "birth_a", "star_metallicity", "total_returned",
+                "last_enrich_myr")})
+        with _Wrap(gadget_main, "_restore_gas_state", through=spy), \
+                _RunRecorder(self._sync) as rec2:
+            sim = gadget_main.run_gadget(pps[1], 1, max_steps=2, device=dev)
+        for name, key in (("StellarFormationTime", "birth_a"),
+                          ("Metallicity", "star_metallicity"),
+                          ("TotalMassReturned", "total_returned"),
+                          ("LastEnrichmentMyr", "last_enrich_myr")):
+            if not np.array_equal(got.get(key), saved[4][name]):
+                raise SmokeFailure(f"the resume did not restore {name}")
+        say("stars", f"RestartFlag 1 from PART_{n_out - 1:03d} to "
+            f"a={sim.atime():.6f}: the star rows' StellarFormationTime, "
+            f"Metallicity, TotalMassReturned and LastEnrichmentMyr restored "
+            f"exactly ({len(saved[4]['ID'])} stars), "
+            f"{int((sim.particles.ptype == 4).sum())} star rows after the "
+            f"step")
+        if not sim.atime() > runs[0][1]:
+            raise SmokeFailure("the star-small resume did not step on")
+        del sim, saved
+        shapes = dict(rec.shapes)
+        for k_, v in rec2.shapes.items():
+            shapes.setdefault(k_, [0] + v[1:])[0] += v[0]
+        del rec, rec2
+        self.stars_row = self._check_shapes(shapes, "stars")
+
+    def _star_fields_check(self, snap, pig):
+        """The gas and star blocks of a PART finite, the gas density,
+        weighted density, smoothing length and internal energy (so the
+        entropy) positive, the gas metallicity positive somewhere, and
+        every star of the PART a member of a PIG group."""
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        bf = BigFile(snap)
+        for name in ("SmoothingLength", "Density", "EgyWtDensity",
+                     "InternalEnergy"):
+            v = bf[f"0/{name}"].read()
+            if not (np.isfinite(v).all() and (v > 0).all()):
+                raise SmokeFailure(f"{snap}: gas {name} not finite and "
+                                   f"positive")
+        for name in ("Metallicity", "StarFormationRate", "DelayTime",
+                     "ElectronAbundance", "Velocity"):
+            if not np.isfinite(bf[f"0/{name}"].read()).all():
+                raise SmokeFailure(f"{snap}: gas {name} not finite")
+        zmax = float(bf["0/Metallicity"].read().max())
+        ids = (bf["4/ID"].read() if "4/ID" in bf
+               else np.zeros(0, np.uint64))
+        for name in ("Position", "Velocity", "Mass", "StellarFormationTime",
+                     "Metallicity", "TotalMassReturned",
+                     "LastEnrichmentMyr"):
+            if ids.size and not np.isfinite(bf[f"4/{name}"].read()).all():
+                raise SmokeFailure(f"{snap}: star {name} not finite")
+        pg = BigFile(pig)
+        in_groups = (pg["4/ID"].read() if "4/ID" in pg
+                     else np.zeros(0, np.uint64))
+        lbt = pg["FOFGroups/LengthByType"].read() \
+            if "FOFGroups/LengthByType" in pg else np.zeros((0, 6))
+        say("stars", f"  {snap.rsplit('/', 1)[-1]}: gas fields finite, "
+            f"positive; max gas metallicity {zmax:.4g}; {ids.size} stars, "
+            f"{in_groups.size} of them in PIG groups (LengthByType "
+            f"{int(lbt[:, 4].sum()) if len(lbt) else 0})")
+        if not self.rehearsal and not np.isin(ids, in_groups).all():
+            raise SmokeFailure(f"{pig}: a star outside every FOF group")
+        if ids.size and not zmax > 0:
+            raise SmokeFailure(f"{snap}: no gas metallicity after the "
+                               f"stars formed")
+
+    def _stars_profile(self, sim, dt):
+        """One source step of the end state as a PM step's
+        proto_sources runs it (update_vdisp, cooling and star formation,
+        the conversion, winds, metal return) with every gas row active
+        for `dt`, the run's last mean active dtime (sfr.txt): host clock
+        with a synchronize around each piece, then torch.profiler's
+        device time and kernel count."""
+        if self.rehearsal:
+            say("stars", "source-step profile skipped in the CPU rehearsal")
+            return
+        torch = self.torch
+        from torch.profiler import profile, ProfilerActivity
+        from shenqi_tpu_torch import simulation_gas as sg
+        from shenqi_tpu_torch.physics import sfr
+        GP = sg.GasPhysics
+        pieces = [(GP, "update_vdisp"), (GP, "source_terms"),
+                  (sg, "starformation_step"), (sfr, "do_cooling"),
+                  (sfr, "_cooling_time_on"), (GP, "_convert_stars_device"),
+                  (GP, "_convert_stars"), (sg, "winds_star_feedback"),
+                  (GP, "metal_return")]
+        gp = sim.gas_physics
+        dtime = torch.full((sim.gas.ngas,), dt, dtype=torch.float32,
+                           device=self.dev)
+
+        def step():
+            self._sync()
+            t = time.perf_counter()
+            sim.gas = gp.update_vdisp(sim, sim.gas)
+            sim.gas, _ = gp.source_terms(sim, sim.gas, dtime)
+            sim.gas = gp.metal_return(sim, sim.gas)
+            self._sync()
+            return (time.perf_counter() - t) * 1e3
+
+        wraps = [_Wrap(m, n, sync=self._sync) for m, n in pieces]
+        for w in wraps:
+            w.__enter__()
+        try:
+            wall = step()
+        finally:
+            for w in reversed(wraps):
+                w.__exit__(None, None, None)
+        ng = sim.gas.ngas
+        say("stars", f"one source step ({ng} gas rows, all active for "
+            f"dtime {dt:g}): "
+            f"{wall:.1f} ms = " + ", ".join(
+                f"{n} {w.seconds * 1e3:.1f} ms in {len(w.each)} calls"
+                for (_, n), w in zip(pieces, wraps))
+            + " (source_terms holds starformation_step, the conversions"
+            " and the winds; starformation_step holds do_cooling and the "
+            "eEOS cooling times, _cooling_time_on)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall_p = step()
+        rows = _device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        kernels = sum(r[1] for r in rows)
+        say("stars", f"the source step under torch.profiler "
+            f"({wall_p:.1f} ms with the profiler): device busy "
+            f"{busy:.1f} ms, {100 * busy / wall:.1f}% of the step's "
+            f"{wall:.1f} ms in the split above, in {kernels} device "
+            f"events")
+        for ms_, cnt, key in sorted(rows, reverse=True)[:6]:
+            say("stars", f"  {ms_:9.3f} ms {cnt:7d}x {key[:90]}")
 
     def profile(self):
         """Where the time goes in one full force pass at the slice's size
@@ -1848,13 +2248,7 @@ class Smoke:
         wall = (time.perf_counter() - t) * 1e3
         (times.pm_length, times.pm_start, times.mintimebin,
          times.maxtimebin, sim.particles) = saved
-        rows = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us > 0:
-                rows.append((us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
+        rows = sorted(_device_rows(prof), reverse=True)
         busy = sum(r[0] for r in rows)
         groups = {"p2p_kernel": 0.0, "fft": 0.0, "sort": 0.0,
                   "gather/scatter": 0.0, "scan": 0.0, "other": 0.0}
@@ -1901,7 +2295,8 @@ class Smoke:
                 ("dmsmall", self.dmsmall_row, self.dmsmall_launches),
                 ("nu", self.nu_row, self.nu_launches),
                 ("gas", self.gas_row, self.gas_launches),
-                ("gas128", self.gas128_row, self.gas128_launches))]),
+                ("gas128", self.gas128_row, self.gas128_launches),
+                ("stars", self.stars_row, self.stars_launches))]),
               flush=True)
         print(json.dumps({"kernels": [entry(self.cli_row,
                                             self.cli_launches)]}),
@@ -2056,6 +2451,101 @@ class _SphRecorder:
         (GP.density_hydro, GP.setup_density_indep_entropy, sg.sph_density,
          sd.stencil_density_walk, sg.stencil_hydro_walk) = self._saved
         return False
+
+
+class _StarRecorder:
+    """Within a `with` block, records each source step of a run
+    (GasPhysics.source_terms) by its step: the star-formation sums it
+    reduces (_sf_stats_reduce: star-forming rows, split and whole
+    conversions), the wind kicks of winds_star_feedback (rows whose
+    velocity it changed), and each metal-return scatter's active-star
+    lanes (bh_gas_environment), the mass its stars return and the mass
+    the gas receives (metal_return_step).  The values stay on the device
+    until `per_step`, so the run's host syncs are its own."""
+
+    def __init__(self):
+        self.step = -1
+        self.rows = []          # (step, kind, device tensor)
+
+    def __enter__(self):
+        from shenqi_tpu_torch import simulation_gas as sg
+        GP = sg.GasPhysics
+        self._saved = (GP.source_terms, sg._sf_stats_reduce,
+                       sg.winds_star_feedback, sg.bh_gas_environment,
+                       sg.metal_return_step)
+        src, stats, winds, env, mrs = self._saved
+        rec = self
+
+        def source_terms(gp, sim_, *a, **kw):
+            rec.step = sim_.step_count
+            return src(gp, sim_, *a, **kw)
+
+        def sf_stats(*a, **kw):
+            out = stats(*a, **kw)
+            rec.rows.append((rec.step, "sf", out.clone()))
+            return out
+
+        def wind(*a, **kw):
+            out = winds(*a, **kw)
+            # the rows whose velocity the kicks changed
+            rec.rows.append((rec.step, "kicks",
+                             (out[0] != a[7]).any(1).sum()))
+            return out
+
+        def environment(*a, **kw):
+            rec.rows.append((rec.step, "mr_stars", (a[1] > 0).sum()))
+            return env(*a, **kw)
+
+        def scatter(*a, **kw):
+            dm, dz = mrs(*a, **kw)
+            alive = a[7]
+            rec.rows.append((rec.step, "returned", a[2].sum()))
+            rec.rows.append((rec.step, "received",
+                             dm.double()[alive].sum()))
+            return dm, dz
+
+        GP.source_terms = source_terms
+        sg._sf_stats_reduce = sf_stats
+        sg.winds_star_feedback = wind
+        sg.bh_gas_environment = environment
+        sg.metal_return_step = scatter
+        return self
+
+    def __exit__(self, *exc):
+        from shenqi_tpu_torch import simulation_gas as sg
+        (sg.GasPhysics.source_terms, sg._sf_stats_reduce,
+         sg.winds_star_feedback, sg.bh_gas_environment,
+         sg.metal_return_step) = self._saved
+        return False
+
+    def per_step(self):
+        """{step: {split, whole, sf_rows, kicks, mr_stars, returned,
+        received}}"""
+        out = {}
+        for step, kind, v in self.rows:
+            d = out.setdefault(step, {})
+            if kind == "sf":
+                v = v.tolist()
+                d["sf_rows"] = d.get("sf_rows", 0) + int(v[3])
+                d["split"] = d.get("split", 0) + int(v[6])
+                d["whole"] = d.get("whole", 0) + int(v[7])
+            elif kind in ("returned", "received"):
+                d[kind] = d.get(kind, 0.0) + float(v)
+            else:
+                d[kind] = d.get(kind, 0) + int(v)
+                if kind == "mr_stars":
+                    d["mr_calls"] = d.get("mr_calls", 0) + 1
+        return out
+
+    def totals(self):
+        t = {"split": 0, "whole": 0, "kicks": 0, "mr_calls": 0,
+             "mr_star_lanes": 0, "returned": 0.0, "received": 0.0}
+        for d in self.per_step().values():
+            for k in ("split", "whole", "kicks", "mr_calls", "returned",
+                      "received"):
+                t[k] += d.get(k, 0)
+            t["mr_star_lanes"] += d.get("mr_stars", 0)
+        return t
 
 
 class _Wrap:
@@ -2223,6 +2713,27 @@ class _StageClock:
         return out
 
 
+def _device_rows(prof):
+    """[(ms, count, name)] of a torch.profiler run's device events
+    (kernels, copies, fills) summed by name, read from its raw events:
+    key_averages() builds every event's tree, ~40 s for the ~0.5M events
+    of a source step."""
+    from torch.autograd import DeviceType
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:         # a torch without the raw events
+        return [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+                 e.key) for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0.0) > 0]
+    acc = {}
+    for e in raw.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        a = acc.setdefault(e.name(), [0.0, 0])
+        a[0] += e.duration_ns() / 1e6
+        a[1] += 1
+    return [(ms_, n, name) for name, (ms_, n) in acc.items()]
+
+
 def _issue_floor_ms(pairs, inwin, ncf, ncp, want_pot):
     """The pipe-limited floor beside the f32 bound: the operations of
     ops/p2p.py's tally (a pair inside the window at its full count, one
@@ -2292,9 +2803,11 @@ def main(argv) -> int:
         return 1
     smoke = Smoke(rehearsal)
     smoke.steps_log = steps_log
+    smoke.budget = budget
     try:
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "dmsmall", "nu", "gas", "gas128", "profile"):
+                      "dmsmall", "nu", "gas", "gas128", "stars",
+                      "profile"):
             getattr(smoke, phase)()
             if not rehearsal:
                 torch.cuda.synchronize()

@@ -7,7 +7,9 @@ patterns, the rest keep their dtype.  `window_from_numpy` turns a JAX
 PolyWindow's arrays into the port's PolyWindow.  `nu_table_from_numpy`
 turns a JAX DeltaTotTable's host state into the port's, on the port's
 Cosmology.  `gas_state_from_numpy` turns a JAX GasState's arrays into
-the port's GasState.  All four are exact.
+the port's GasState (the star and wind fields too).  `key_from_numpy`
+turns a JAX GasPhysics.rng_key into the port's threefry key, so that
+both packages go on drawing one stream.  All five are exact.
 """
 
 from __future__ import annotations
@@ -94,3 +96,10 @@ def gas_state_from_numpy(d: dict, device=None) -> GasState:
         kw[f.name] = torch.from_numpy(
             np.array(v, dtype=dtype, copy=True)).to(dev)
     return GasState(**kw)
+
+
+def key_from_numpy(key) -> tuple:
+    """The port's threefry key (utils/threefry.py) from a jax.random key
+    array of two uint32 words (GasPhysics.rng_key)."""
+    k = np.asarray(key, dtype=np.uint32).reshape(2)
+    return (int(k[0]), int(k[1]))

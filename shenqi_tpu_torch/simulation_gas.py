@@ -1,19 +1,32 @@
 """Gas stages for the Simulation driver (shenqi_tpu/simulation_gas.py in
-torch, run.cpp's gas sections), adiabatic gas only.
+torch, run.cpp's gas sections).
 
 Per step (run.cpp:458-681):
   * density with adaptive smoothing lengths (run.cpp:488) and the hydro
     force (run.cpp:505), both on the grid stencil and for the active
-    gas only; sources are always all gas at predicted quantities;
-  * the hydro kick and entropy update in Simulation._apply_half_kick.
+    gas only; sources are always all gas at predicted quantities, but
+    for the hydro-decoupled wind rows, which exert and feel no hydro
+    force;
+  * the hydro kick and entropy update in Simulation._apply_half_kick;
+  * Strang-split source terms after the kick (run.cpp:604-681):
+    radiative cooling, the SH03 effective EOS with star formation
+    (gas -> star conversion: a whole particle flips its ptype, a split
+    spawns a star on a free row), winds (subgrid kicks, or new stars
+    kicking their gas neighbours as ofjt10 does, with the DM velocity
+    dispersion refreshed each PM step), and metal return from the star
+    rows to the gas around them.
 
-Gas rows occupy the array prefix [0, ngas).  The pressure-entropy IC
-fixed point (`setup_density_indep_entropy`) runs on the blocked octree
-walk, as in the JAX package.  Cooling, star formation, winds, black
-holes, metal return, helium and excursion-set reionization are ROADMAP
-A.8: GasPhysics refuses any of their switches, and with all of them off
-the source terms leave the state as the JAX package does (each of its
-stages returns early).
+Gas rows occupy the array prefix [0, ngas); stars converted from gas
+keep their row, spawned stars take free rows anywhere.  The
+pressure-entropy IC fixed point (`setup_density_indep_entropy`) runs on
+the blocked octree walk, as in the JAX package.  Black holes, helium and
+excursion-set reionization, the fluctuating UVB and metal-line cooling
+are the rest of ROADMAP A.8: GasPhysics refuses their switches.
+
+The random streams are the JAX package's: GasPhysics holds a threefry key
+(utils/threefry.py) seeded 42 whatever the paramfile's seed, as
+simulation_gas.py:294-300 of the JAX package does (ROADMAP C.4), and
+splits it the same way, so each draw is the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,21 +37,80 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from typing import Optional
+
 from ._device import resolve_device
-from .core.particles import GAS
+from .core.particles import GAS, DM, STAR, wrap_i32
 from .core.timeline import TIMEBINS
 from .core.integrate import predictor_tables
 from .ops.tree import build_octree
+from .physics.blackhole import bh_gas_environment
+from .physics.cooling_rates import CoolingParams, TreeCool, UVBG, do_cooling
+from .physics.metal_return import metal_return_step
+from .physics.sfr import (SFRParams, CoolingUnits, starformation_step,
+                          entropy_to_u)
+from .physics.veldisp import dm_velocity_dispersion
+from .physics.winds import (WindParams, WIND_SUBGRID, WIND_FIXED_EFFICIENCY,
+                            winds_subgrid_step, winds_star_feedback,
+                            winds_decay, is_decoupled)
 from .sph.kernels import CUBIC
 from .sph.density import density as sph_density, density_walk_blocked
 from .sph.hydro import (HydroParams, HydroResult, hydro_time_factors,
-                        hydro_walk_dense, balsara_f1, pressure_predict)
-from .sph.stencil_hydro import stencil_hydro_walk
-from .utils.constants import GAMMA, GAMMA_MINUS1
+                        balsara_f1, pressure_predict)
+from .sph.stencil_hydro import stencil_hydro_walk, hydro_cover_patch
+from .utils import threefry
+from .utils.constants import GAMMA, GAMMA_MINUS1, HYDROGEN_MASSFRAC
 
 # the full-length star arrays slots_gc cuts with the particle arrays
 _STAR_ROWS = ("birth_a", "last_enrich_myr", "mass0", "total_returned",
               "star_metallicity")
+# split spawns the device conversion takes per step; more (or too few
+# free rows) take the host path, which grows the arrays
+_KSPAWN = 512
+
+
+def _sf_stats_reduce(gas_alive, sfr, form, whole, mstar, dtime,
+                     mask_full):
+    """The per-step SF bookkeeping sums as one f32 tensor (one host pull):
+    [sfr_sum, sm_sum, spawned_mass, n_sf, n_act, dt_sum, n_split,
+     n_whole, n_free] (counts < 2^24, exact)."""
+    f = torch.float32
+    z = torch.zeros((), dtype=f, device=sfr.device)
+    return torch.stack([
+        torch.sum(torch.where(gas_alive, sfr, z)),
+        torch.sum(torch.where(gas_alive, sfr * dtime, z)),
+        torch.sum(torch.where(gas_alive & form, mstar, z)),
+        torch.sum(gas_alive & (sfr > 0)).to(f),
+        torch.sum(gas_alive & (dtime > 0)).to(f),
+        torch.sum(torch.where(gas_alive, dtime, z)),
+        torch.sum(form & ~whole).to(f),
+        torch.sum(form & whole).to(f),
+        torch.sum(~mask_full).to(f)])
+
+
+def _interp(x, xp, fp):
+    """jnp.interp in f32 (constant ends), for a 1-D grid xp."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1,
+                    xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    f = fp[i - 1] + (delta / dx) * df
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _metal_return_act(mask, ptype, birth, last, ag, tg, atime,
+                      min_window):
+    """The enrichment-activity decision (metal_return.cpp's stellar-age
+    gating): stellar ages from the t(a) grid, active where the age
+    window since the last enrichment exceeds min_window.  Returns
+    (active mask, ages)."""
+    t1 = _interp(torch.clamp(atime, min=ag[0]), ag, tg)
+    t0 = _interp(torch.clamp(birth, min=ag[0]), ag, tg)
+    age = torch.where(birth > 0, t1 - t0, 0.0)
+    star = mask & (ptype == STAR) & (birth > 0)
+    return star & (age - last > min_window), age
 
 
 @dataclass
@@ -112,7 +184,7 @@ class GasState:
 
 @dataclass
 class GasPhysics:
-    """Configuration + stage implementations for adiabatic gas."""
+    """Configuration + stage implementations for gas."""
 
     density_independent_sph: bool = True
     eta: float = 1.0
@@ -120,28 +192,50 @@ class GasPhysics:
     art_bulk_visc: float = 0.75
     density_contrast_limit: float = 100.0
     kernel: object = CUBIC
-    # the subgrid master switches (ROADMAP A.8): refused when on
+    # the subgrid master switches and their parameters
     cooling_on: bool = False
     sfr_on: bool = False
     winds_on: bool = False
-    bh_on: bool = False
     metal_return_on: bool = False
+    coolpar: Optional[CoolingParams] = None
+    treecool: Optional[TreeCool] = None
+    sfrpar: Optional[SFRParams] = None
+    windpar: Optional[WindParams] = None
+    coolunits: Optional[CoolingUnits] = None
+    metals: object = None        # physics.metal_return.MetalReturn
+    min_enrich_window_myr: float = 1.0
+    # the rest of ROADMAP A.8: refused when on
+    bh_on: bool = False
     helium: object = None
     excursion: object = None
+    zreion_table: object = None
+    metal_cool: object = None
+    # the threefry key the source terms draw from (utils/threefry.py)
+    rng_key: Optional[tuple] = None
 
     def __post_init__(self):
-        on = [n for n in ("cooling_on", "sfr_on", "winds_on", "bh_on",
-                          "metal_return_on", "helium", "excursion")
-              if getattr(self, n)]
+        on = [n for n in ("bh_on", "helium", "excursion", "zreion_table",
+                          "metal_cool") if getattr(self, n)]
         if on:
             raise NotImplementedError(
-                f"GasPhysics: {', '.join(on)}: subgrid physics is not "
-                f"ported yet (ROADMAP A.8)")
+                f"GasPhysics: {', '.join(on)}: not ported yet "
+                f"(ROADMAP A.8)")
+        if self.rng_key is None:
+            # PRNGKey(42) whatever the run's seed, as the JAX package
+            # (simulation_gas.py:294-300; ROADMAP C.4)
+            self.rng_key = threefry.PRNGKey(42)
         self._density_caps = {}
         self._hydro_stencil_caps = {}
         # what the last IC fixed point did (host numbers it synced for
         # its stop test anyway)
         self.last_fixed_point = {}
+        # sfr.txt inputs of the last source step (None once written)
+        self.last_sfr_stats = None
+        self._t_grid = None
+
+    def next_key(self):
+        self.rng_key, sub = threefry.split(self.rng_key)
+        return sub
 
     # ---------- density + hydro ----------
     def density_hydro(self, sim, gas: GasState, active=None) -> GasState:
@@ -210,6 +304,12 @@ class GasPhysics:
 
         # ---- hydro force ----
         atime = sim.atime()
+        # hydro-decoupled wind rows neither exert nor feel hydro forces
+        # (simulation_gas.py:466-572 of the JAX package)
+        decoupled = (is_decoupled(gas.delay_time, gas.density,
+                                  1.0 / atime ** 3, self.windpar)
+                     if (self.winds_on and self.windpar) else
+                     torch.zeros(ng, dtype=torch.bool, device=dev))
         par = HydroParams(boxsize=sim.boxsize,
                           art_bulk_visc_const=self.art_bulk_visc,
                           density_contrast_limit=self.density_contrast_limit,
@@ -236,9 +336,10 @@ class GasPhysics:
                "density": gas.density, "eomdensity": eom_dens,
                "entvar": entvar, "pressure": press, "divvel": gas.div_vel,
                "curlvel": gas.curl_vel, "dhsml_egy": gas.dhsml_egy,
-               "dloga": dloga_tab}
+               "dloga": dloga_tab, "decoupled": decoupled}
+        mass_src = torch.where(decoupled, 0.0, mass_g)
         fields = torch.stack(
-            [mass_g, hsml, vel_g[:, 0], vel_g[:, 1], vel_g[:, 2],
+            [mass_src, hsml, vel_g[:, 0], vel_g[:, 1], vel_g[:, 2],
              gas.density, eom_dens, entvar, press, gas.div_vel,
              gas.curl_vel, gas.dhsml_egy, dloga_tab], dim=1).to(
                  torch.float32)
@@ -247,20 +348,23 @@ class GasPhysics:
                    "egyrho": eom_dens, "entvar": entvar, "pressure": press,
                    "f1": f1, "dhsml": gas.dhsml_egy, "dloga": dloga_tab}
         targets = {k: pick(v) for k, v in targets.items()}
+        tvalid = pick(gas_alive & (hsml > 0))
         hres, cover, n_cover, _ = stencil_hydro_walk(
             ipos_g, fields, targets, par, spec=self.kernel,
-            tier_cache=self._hydro_stencil_caps, tf=tf,
-            tvalid=pick(gas_alive & (hsml > 0)))
+            tier_cache=self._hydro_stencil_caps, tf=tf, tvalid=tvalid)
         if n_cover:
-            # redo the flagged targets against every source (the JAX
-            # package's oracle_patch, simulation_gas.py:513-540)
+            # redo the flagged targets on one-target stencils that hold
+            # their reach (the JAX package redoes them against every
+            # source, oracle_patch, simulation_gas.py:513-540)
             cs_ = torch.nonzero(cover).squeeze(1)
-            hs = hydro_walk_dense(src, {k: v[cs_] for k, v in
-                                        targets.items()},
-                                  par, self.kernel, tf=tf)
+            hs = hydro_cover_patch(
+                ipos_g, fields, {k: v[cs_] for k, v in targets.items()},
+                par, src, spec=self.kernel,
+                tier_cache=self._hydro_stencil_caps, tf=tf,
+                tvalid=tvalid[cs_])
             hres = HydroResult(*(a.index_put((cs_,), b)
                                  for a, b in zip(hres, hs)))
-        live = pick(gas_alive)
+        live = pick(gas_alive & ~decoupled)
         return gas.replace(
             hydro_accel=merge(gas.hydro_accel,
                               torch.where(live[:, None], hres.accel, 0.0)),
@@ -319,6 +423,460 @@ class GasPhysics:
         self.last_fixed_point = {"iterations": len(diffs),
                                  "converged": stop, "maxdiff": diffs}
         return gas.replace(entropy=entropy, egy_wt_density=egywt)
+
+    # ---------- source terms (Strang split) ----------
+    def source_terms(self, sim, gas: GasState, dtime):
+        """Cooling + star formation + winds after the kick
+        (simulation_gas.py:683-901 of the JAX package).
+
+        dtime is per-row (the particle's own timebin dloga/hubble, zero
+        when the row's bin is not at a kick boundary: the reference
+        applies sources to ACTIVE particles only) or a scalar.  Returns
+        (gas, stars formed).
+        """
+        if not (self.cooling_on or self.sfr_on):
+            return gas, 0
+        p = sim.particles
+        ng = gas.ngas
+        dev = p.device
+        gas_alive = (p.mask & (p.ptype == GAS))[:ng]
+        dtime = torch.broadcast_to(torch.as_tensor(
+            dtime, dtype=torch.float32, device=dev), gas.entropy.shape)
+        atime = sim.atime()
+        a3inv = 1.0 / atime ** 3
+        redshift = 1.0 / atime - 1.0
+        uvbg = (self.treecool.uvbg(redshift, self.coolpar)
+                if self.treecool else UVBG())
+        if not self.sfr_on:
+            return self._pure_cooling(gas, gas_alive, dtime, a3inv,
+                                      redshift, uvbg), 0
+
+        res = starformation_step(
+            self.next_key(), gas.density, gas.egy_wt_density, gas.entropy,
+            p.mass[:ng], gas.ne, gas.metallicity, gas.generation, dtime,
+            a3inv, redshift, uvbg, self.sfrpar, self.coolpar,
+            self.coolunits, gas_alive, gradrho_mag=gas.gradrho_mag,
+            hsml=p.hsml[:ng], pids=p.id_lo[:ng])
+        gas = gas.replace(entropy=res.entropy, ne=res.ne,
+                          metallicity=res.metallicity, sfr=res.sfr)
+        # sfr.txt's inputs and the conversion's counts: one host pull
+        sv = _sf_stats_reduce(gas_alive, res.sfr, res.form_star,
+                              res.convert_whole, res.mass_of_star, dtime,
+                              p.mask).tolist()
+        n_split, n_whole, n_free = int(sv[6]), int(sv[7]), int(sv[8])
+        if n_split == 0 and n_whole == 0:
+            nstars = 0
+        elif n_split <= _KSPAWN and n_free >= n_split:
+            nstars = self._convert_stars_device(sim, gas, res, atime)
+        else:
+            if n_free < n_split:
+                self._grow_star_capacity(sim, gas,
+                                         max(n_split - n_free, 1))
+            nstars = self._convert_stars(sim, gas, res, atime)
+        unit_sfr = max(self.sfrpar.UnitSfr_in_solar_per_year, 1e-35)
+        n_sf, n_act = int(sv[3]), int(sv[4])
+        self.last_sfr_stats = {
+            "total_sm": sv[1] / unit_sfr, "totsfrrate": sv[0],
+            "rate_in_msunperyear": sv[0], "total_sum_mass_stars": sv[2],
+            "avg_dtime": sv[5] / max(n_act, 1), "total_sum_part": n_sf,
+            "tot_newstars": nstars}
+        if self.winds_on and self.windpar:
+            gas = self._winds(sim, gas, res, gas_alive, dtime, atime,
+                              a3inv, nstars)
+        return gas, nstars
+
+    def _pure_cooling(self, gas, gas_alive, dtime, a3inv, redshift, uvbg):
+        """Radiative cooling through the implicit solver, without star
+        formation; the solver runs on the active gas rows."""
+        cu = self.coolunits
+        dfac = entropy_to_u(torch.clamp(
+            gas.egy_wt_density if self.density_independent_sph
+            else gas.density, min=1e-35), a3inv)
+        upd = gas_alive & (dfac > 0) & (dtime > 0)
+        sel = torch.nonzero(upd).squeeze(1)
+        if not sel.numel():
+            return gas
+        u = gas.entropy[sel] * dfac[sel]
+        min_egy = (self.sfrpar.min_egyspec() * cu.uu_in_cgs
+                   if self.sfrpar else 0.0)
+        u_cgs, ne = do_cooling(
+            u * cu.uu_in_cgs,
+            gas.density[sel] * a3inv * cu.density_in_phys_cgs,
+            dtime[sel] * cu.tt_in_s, 1 - HYDROGEN_MASSFRAC, redshift,
+            uvbg, self.coolpar, min_egyspec_cgs=min_egy,
+            ne_init=gas.ne[sel])
+        ent = gas.entropy.clone()
+        ne_all = gas.ne.clone()
+        ent[sel] = (u_cgs / cu.uu_in_cgs) / torch.clamp(dfac[sel],
+                                                         min=1e-35)
+        ne_all[sel] = ne
+        return gas.replace(entropy=ent, ne=ne_all)
+
+    def _winds(self, sim, gas, res, gas_alive, dtime, atime, a3inv,
+               nstars):
+        """The wind kicks after star formation and the decoupling clocks'
+        decay (simulation_gas.py:808-901 of the JAX package)."""
+        ng = gas.ngas
+        if self.windpar.has(WIND_SUBGRID):
+            sm = res.sfr * dtime / max(
+                self.sfrpar.UnitSfr_in_solar_per_year, 1e-35)
+            p = sim.particles
+            wres = winds_subgrid_step(
+                self.next_key(), p.vel[:ng], gas.entropy, gas.density,
+                gas.delay_time, p.mass[:ng], sm, gas.vdisp, atime, a3inv,
+                self.windpar,
+                # the reference queues gas that formed mass but did NOT
+                # convert (sfr_eff.cpp:271); converting rows are stars
+                eligible=gas_alive & (res.sfr > 0) & ~res.form_star,
+                pids=p.id_lo[:ng])
+            vel3, ent, delay0 = wres.vel, wres.entropy, wres.delay_time
+        elif nstars == 0:
+            # no new stars: no kicks; only the clocks' decay below
+            vel3 = sim.particles.vel[:ng]
+            ent, delay0 = gas.entropy, gas.delay_time
+        else:
+            # new stars kick their gas neighbours; the star count is
+            # padded to a power-of-two bucket of at least 8 lanes, whose
+            # padding lanes (row 0, mass 0) kick nothing, because the
+            # JAX package's full-shape draw is over the bucket
+            # (source_terms passes no ids: ROADMAP C.4)
+            sidx = torch.nonzero(res.form_star).squeeze(1)
+            ns0 = sidx.shape[0]
+            nbkt = max(8, 1 << (ns0 - 1).bit_length())
+            smask = torch.arange(nbkt, device=sidx.device) < ns0
+            sidx = torch.nn.functional.pad(sidx, (0, nbkt - ns0))
+            p2 = sim.particles
+            # split spawns carry mass_of_star, not the parent's full mass
+            star_m = torch.where(res.convert_whole, p2.mass[:ng],
+                                 res.mass_of_star)
+            vel3, ent, delay0 = winds_star_feedback(
+                self.next_key(), p2.ipos[sidx],
+                torch.clamp(p2.hsml[sidx], min=1e-3),
+                torch.where(smask, star_m[sidx], 0.0), gas.vdisp[sidx],
+                p2.ipos[:ng], p2.mass[:ng], p2.vel[:ng], gas.entropy,
+                gas.density, gas.delay_time, gas_alive & ~res.form_star,
+                sim.boxsize, atime, a3inv, self.windpar)
+        p = sim.particles
+        sim.particles = p.replace(vel=torch.cat([vel3, p.vel[ng:]]))
+        delay = winds_decay(delay0, gas.density, a3inv, dtime,
+                            self.windpar)
+        return gas.replace(entropy=ent, delay_time=delay)
+
+    # ---------- metal return (metal_return.cpp analog) ----------
+    def _age_grid(self, sim):
+        """The t(a) grid of the activity decision, on the device: 257
+        scale factors from 0.01 to 1 and the cosmic time at each (Myr)."""
+        if self._t_grid is None:
+            ag = np.geomspace(0.01, 1.0, 257)
+            tg = np.zeros_like(ag)
+            for i in range(1, len(ag)):
+                tg[i] = tg[i - 1] + sim.CP.age_myr(ag[i - 1], ag[i])
+            dev = sim.device
+            self._t_grid = (
+                torch.tensor(ag, dtype=torch.float32, device=dev),
+                torch.tensor(tg, dtype=torch.float32, device=dev))
+        return self._t_grid
+
+    def metal_return(self, sim, gas: GasState) -> GasState:
+        """Return stellar ejecta mass and metals to the gas around each
+        star (metal_return.cpp; simulation_gas.py:903-1046 of the JAX
+        package).
+
+        Per active star, the IMF-weighted AGB + SNII yields and the Sn1a
+        DTD over the age window since its last enrichment (host scipy,
+        `MetalReturn.star_return`), then a kernel-weighted scatter onto
+        the gas within the star's smoothing length.  The weights' sum
+        comes from `bh_gas_environment` with the cubic kernel while the
+        scatter uses the run's kernel, and the smoothing length is the
+        progenitor gas row's: both as the JAX package does (ROADMAP
+        C.4).  One host pull of the active count, one of the active
+        stars' scalars."""
+        if not (self.metal_return_on and self.metals):
+            return gas
+        p = sim.particles
+        ng = gas.ngas
+        ntot = p.n
+        dev = p.device
+        atime = sim.atime()
+        ag, tg = self._age_grid(sim)
+        act, age = _metal_return_act(
+            p.mask, p.ptype, gas.birth_a, gas.last_enrich_myr, ag, tg,
+            torch.tensor(atime, dtype=torch.float32, device=dev),
+            self.min_enrich_window_myr)
+        idx = torch.nonzero(act).squeeze(1)
+        ns0 = idx.shape[0]
+        if ns0 == 0:
+            return gas
+        # the active stars in a power-of-two bucket of at least 8 lanes,
+        # padding lanes at the last row with zero hsml (as the JAX
+        # package's bucket)
+        nbkt = max(8, 1 << (ns0 - 1).bit_length())
+        lane = torch.arange(nbkt, device=dev) < ns0
+        idx = torch.nn.functional.pad(idx, (0, nbkt - ns0), value=ntot)
+        idx_c = torch.clamp(idx, max=ntot - 1)
+        gas_alive = (p.mask & (p.ptype == GAS))[:ng]
+        star_ipos = p.ipos[idx_c]
+        star_hsml = torch.where(lane, torch.clamp(p.hsml[idx_c], min=1e-3),
+                                0.0)
+        gmass = torch.where(gas_alive, p.mass[:ng], 0.0)
+        env = bh_gas_environment(star_ipos, star_hsml, p.ipos[:ng], gmass,
+                                 gas.density, p.vel[:ng], gas_alive,
+                                 sim.boxsize)
+        fw, zmet_s, last_h, age_s, m0_s, totret_h = [
+            x.cpu().numpy().copy() for x in torch.stack([
+                env.feedback_weight, gas.star_metallicity[idx_c],
+                gas.last_enrich_myr[idx_c], age[idx_c], gas.mass0[idx_c],
+                gas.total_returned[idx_c]])]
+        # a star with no gas inside its hsml cannot scatter; its
+        # enrichment waits for a later step, so the returned mass stays
+        # with it
+        has_ngb = fw > 1e-30
+        h = sim.CP.HubbleParam
+        mret = np.zeros(nbkt, np.float32)
+        zret = np.zeros(nbkt, np.float32)
+        upd = np.zeros(nbkt, bool)
+        for j in range(ns0):
+            if not has_ngb[j]:
+                continue
+            mfrac, zfrac, _ = self.metals.star_return(
+                float(zmet_s[j]), float(last_h[j]), float(age_s[j]), h)
+            # cap: never return more than 90% of the birth mass total
+            mfrac = min(mfrac, max(0.9 - totret_h[j], 0.0))
+            mret[j] = mfrac * m0_s[j]
+            zret[j] = min(zfrac, mfrac) * m0_s[j]
+            totret_h[j] += mfrac
+            last_h[j] = age_s[j]
+            upd[j] = True
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        mret_t, zret_t = t(mret), t(zret)
+        tgt_u = torch.where(lane & t(upd), idx, ntot)
+        last = torch.cat([gas.last_enrich_myr, gas.last_enrich_myr[:1]])
+        last[tgt_u] = t(last_h)
+        totret = torch.cat([gas.total_returned, gas.total_returned[:1]])
+        totret[tgt_u] = t(totret_h)
+        gas.last_enrich_myr = last[:ntot]
+        gas.total_returned = totret[:ntot]
+        if mret.sum() <= 0:
+            return gas
+        dm, dz = metal_return_step(star_ipos, star_hsml, mret_t, zret_t,
+                                   env.feedback_weight, p.ipos[:ng], gmass,
+                                   gas_alive, sim.boxsize, self.kernel)
+        new_metal = torch.where(
+            gas_alive, (gas.metallicity * gmass + dz)
+            / (torch.clamp(gmass, min=1e-35) + dm), gas.metallicity)
+        new_mass = p.mass.clone()
+        new_mass[:ng] += torch.where(gas_alive, dm, 0.0)
+        # the stars give up what they returned, down to a tenth of their
+        # birth mass
+        val = torch.maximum(new_mass[idx_c] - mret_t, 0.1 * t(m0_s))
+        new_mass = torch.cat([new_mass, new_mass[:1]])
+        new_mass[torch.where(lane, idx, ntot)] = val
+        sim.particles = p.replace(mass=new_mass[:ntot])
+        return gas.replace(metallicity=new_metal)
+
+    # ---------- DM velocity dispersion (veldisp2.cpp analog) ----------
+    def update_vdisp(self, sim, gas: GasState) -> GasState:
+        """Refresh the per-gas DM velocity dispersion of the sigma-based
+        wind models (run.cpp:662-663: once per PM step)."""
+        if not (self.winds_on and self.windpar) or \
+                self.windpar.has(WIND_FIXED_EFFICIENCY):
+            return gas
+        p = sim.particles
+        ng = gas.ngas
+        didx = torch.nonzero(p.mask & (p.ptype == DM)).squeeze(1)
+        if not didx.numel():
+            return gas
+        gas_alive = (p.mask & (p.ptype == GAS))[:ng]
+        sigma, _, _ = dm_velocity_dispersion(
+            p.ipos[didx], p.vel[didx], p.mass[didx],
+            torch.ones(didx.shape[0], dtype=torch.bool, device=p.device),
+            p.ipos[:ng], torch.clamp(p.hsml[:ng] * 2, min=1e-3),
+            sim.boxsize, sim.atime(), nlevels=sim.gravity.tree_nlevels,
+            ncrit=sim.gravity.tree_ncrit)
+        return gas.replace(vdisp=torch.where(gas_alive, sigma, gas.vdisp))
+
+    # ---------- gas -> star conversion ----------
+    def _convert_stars_device(self, sim, gas: GasState, res, atime) -> int:
+        """Gas -> star conversion on the device (make_particle_star +
+        slots_split_particle, sfr_eff.cpp:604; the JAX package's
+        `_convert_stars_kernel`, simulation_gas.py:65-137).  Whole
+        conversions flip the gas row in place; splits copy the parent row
+        onto the first free rows in ascending order, take mass_of_star
+        from the parent, bump the parent's generation and tag the child
+        ID with the generation in its top byte.  The caller guarantees
+        enough free rows (at most _KSPAWN splits)."""
+        p = sim.particles
+        n = p.n
+        ng = gas.ngas
+        dev = p.device
+        conv_w = res.form_star & res.convert_whole
+        conv_s = res.form_star & ~res.convert_whole
+        full_w = torch.zeros(n, dtype=torch.bool, device=dev)
+        full_w[:ng] = conv_w
+        gmet_full = torch.zeros(n, dtype=gas.metallicity.dtype, device=dev)
+        gmet_full[:ng] = gas.metallicity
+        at32 = float(np.float32(atime))
+        ptype = torch.where(full_w, STAR, p.ptype).to(p.ptype.dtype)
+        birth = torch.where(full_w, at32, gas.birth_a)
+        enr = torch.where(full_w, 0.0, gas.last_enrich_myr)
+        m0 = torch.where(full_w, p.mass, gas.mass0)
+        smet = torch.where(full_w, gmet_full, gas.star_metallicity)
+        sfr = torch.where(conv_w, 0.0, gas.sfr)
+        src = torch.nonzero(conv_s).squeeze(1)
+        nspawn = src.shape[0]
+        ipos, vel, hsml, tb = p.ipos, p.vel, p.hsml, p.timebin
+        idlo, idhi, mass, mask = p.id_lo, p.id_hi, p.mass, p.mask
+        gen, delay = gas.generation, gas.delay_time
+        bhm, bhmd = gas.bh_mass, gas.bh_mdot
+        if nspawn:
+            dst = torch.nonzero(~mask).squeeze(1)[:nspawn]
+            ms = res.mass_of_star[src]
+            gen_child = gen[src] + 1
+            mass = mass.clone()
+            mass[src] = mass[src] - ms
+            gen = gen.clone()
+            gen[src] = gen_child
+            mask = mask.clone()
+            mask[dst] = True
+            ptype[dst] = STAR
+            mass[dst] = ms
+            ipos, vel, hsml, tb, idlo = (a.clone() for a in
+                                         (ipos, vel, hsml, tb, idlo))
+            ipos[dst] = ipos[src]
+            vel[dst] = vel[src]
+            hsml[dst] = hsml[src]
+            tb[dst] = tb[src]
+            idlo[dst] = idlo[src]
+            idhi = idhi.clone()
+            idhi[dst] = wrap_i32((idhi[src].long() & 0xFFFFFFFF)
+                                 | (gen_child.long() << 24))
+            birth[dst] = at32
+            enr[dst] = 0.0
+            m0[dst] = ms
+            smet[dst] = gas.metallicity[src]
+            # reused gas-prefix rows become stars: scrub stale gas state
+            dst_g = dst[dst < ng]
+            sfr[dst_g] = 0.0
+            delay, bhm, bhmd = delay.clone(), bhm.clone(), bhmd.clone()
+            delay[dst_g] = 0.0
+            bhm[dst_g] = 0.0
+            bhmd[dst_g] = 0.0
+        sim.particles = p.replace(
+            ipos=ipos, vel=vel, hsml=hsml, timebin=tb, id_lo=idlo,
+            id_hi=idhi, mass=mass, mask=mask, ptype=ptype)
+        gas.birth_a, gas.last_enrich_myr, gas.mass0 = birth, enr, m0
+        gas.star_metallicity, gas.generation, gas.sfr = smet, gen, sfr
+        gas.delay_time, gas.bh_mass, gas.bh_mdot = delay, bhm, bhmd
+        nstars = int(torch.sum(conv_w)) + nspawn
+        sim.star_formation_times = getattr(
+            sim, "star_formation_times", []) + [atime] * nstars
+        return nstars
+
+    def _convert_stars(self, sim, gas: GasState, res, atime) -> int:
+        """Gas -> star conversion through host arrays (the JAX package's
+        `_convert_stars`, simulation_gas.py:1347-1465, the path it takes
+        when the device conversion's spawn cap or its free rows run
+        out): the same rows as `_convert_stars_device`, growing the
+        arrays when the free rows are too few."""
+        convert = res.form_star.cpu().numpy()
+        if not convert.any():
+            return 0
+        ng = gas.ngas
+        whole = res.convert_whole.cpu().numpy()
+        mstar = res.mass_of_star.cpu().numpy()
+        idx_whole = np.nonzero(convert & whole)[0]
+        idx_split = np.nonzero(convert & ~whole)[0]
+        nspawn = len(idx_split)
+        if nspawn and int((~sim.particles.mask).sum()) < nspawn:
+            self._grow_star_capacity(
+                sim, gas, max(nspawn - int((~sim.particles.mask).sum()), 1))
+        p = sim.particles
+        dev = p.device
+
+        def h(x):
+            return x.cpu().numpy().copy()
+
+        ptype, mask, massv = h(p.ptype), h(p.mask), h(p.mass)
+        birth, enr, m0 = h(gas.birth_a), h(gas.last_enrich_myr), h(gas.mass0)
+        smet, gmet = h(gas.star_metallicity), h(gas.metallicity)
+        gen, sfr = h(gas.generation), h(gas.sfr)
+        delay, bhm, bhmd = h(gas.delay_time), h(gas.bh_mass), h(gas.bh_mdot)
+        at32 = np.float32(atime)
+        # --- whole conversions: flip in place ---
+        ptype[idx_whole] = STAR
+        birth[idx_whole] = at32
+        enr[idx_whole] = 0.0
+        m0[idx_whole] = massv[idx_whole]
+        smet[idx_whole] = gmet[idx_whole]
+        sfr[idx_whole] = 0.0
+        new = {"ptype": ptype, "mask": mask, "mass": massv}
+        if nspawn:
+            rows = np.nonzero(~mask)[0][:nspawn]
+            # scrub stale gas state on reused gas-prefix rows
+            reused = rows[rows < ng]
+            sfr[reused] = 0.0
+            delay[reused] = 0.0
+            bhm[reused] = 0.0
+            bhmd[reused] = 0.0
+            ipos, vel, hsml = h(p.ipos), h(p.vel), h(p.hsml)
+            tb, idlo, idhi = h(p.timebin), h(p.id_lo), h(p.id_hi)
+            ms = mstar[idx_split]
+            ipos[rows] = ipos[idx_split]
+            vel[rows] = vel[idx_split]
+            hsml[rows] = hsml[idx_split]
+            tb[rows] = tb[idx_split]
+            massv[rows] = ms
+            massv[idx_split] -= ms
+            mask[rows] = True
+            ptype[rows] = STAR
+            # child id: the parent's with the generation in the top byte
+            gen_child = gen[idx_split] + 1
+            idlo[rows] = idlo[idx_split]
+            idhi[rows] = (idhi[idx_split].view(np.uint32)
+                          | (gen_child.astype(np.uint32) << 24)
+                          ).view(np.int32)
+            gen[idx_split] = gen_child
+            birth[rows] = at32
+            enr[rows] = 0.0
+            m0[rows] = ms
+            smet[rows] = gmet[idx_split]
+            new.update(ipos=ipos, vel=vel, hsml=hsml, timebin=tb,
+                       id_lo=idlo, id_hi=idhi)
+        sim.particles = p.replace(**{k: torch.from_numpy(v).to(dev)
+                                     for k, v in new.items()})
+        for name, v in (("birth_a", birth), ("last_enrich_myr", enr),
+                        ("mass0", m0), ("star_metallicity", smet),
+                        ("generation", gen), ("sfr", sfr),
+                        ("delay_time", delay), ("bh_mass", bhm),
+                        ("bh_mdot", bhmd)):
+            setattr(gas, name, torch.from_numpy(v).to(dev))
+        nstars = len(idx_whole) + nspawn
+        sim.star_formation_times = getattr(
+            sim, "star_formation_times", []) + [atime] * nstars
+        return nstars
+
+    def _grow_star_capacity(self, sim, gas: GasState, need: int):
+        """Add spare rows (SlotsIncreaseFactor analog, run.cpp:236):
+        every particle array and the star bookkeeping arrays take
+        max(n/8, need, 1024) dead rows more, rounded up to 128."""
+        p = sim.particles
+        old = p.n
+        extra = max(old // 8, need, 1024)
+        extra = ((extra + 127) // 128) * 128
+
+        def pad(a):
+            z = torch.zeros((extra,) + tuple(a.shape[1:]), dtype=a.dtype,
+                            device=a.device)
+            return torch.cat([a, z])
+
+        sim.particles = p.replace(**{
+            f.name: pad(getattr(p, f.name)) for f in dataclasses.fields(p)
+            if getattr(p, f.name).shape[0] == old})
+        for name in _STAR_ROWS:
+            setattr(gas, name, pad(getattr(gas, name)))
 
     def slots_gc(self, sim, gas: GasState):
         """Compact the spare tail (slots_gc, slotsmanager.cpp:133): the

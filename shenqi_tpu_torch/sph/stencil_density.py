@@ -308,7 +308,10 @@ def stencil_density_walk(grid, tgt_ipos, tgt_vel, tgt_hsml, boxsize, k: int,
     CAND = _next_pow2(W ** 3) if W ** 3 & (W ** 3 - 1) else W ** 3
     T = ((t + sub - 1) // sub) * sub
 
-    tbc_key = ("sphst_tbc", k, sub)
+    # the capacity is kept per power-of-two class of the target count, so
+    # that the hsml loop's small subsets do not evaluate the capacity of
+    # its full walks (padding only: the sums are the same)
+    tbc_key = ("sphst_tbc", k, sub, _next_pow2(T))
     TBC = tier_cache.get(tbc_key, default_tbc(T, sub))
     while True:
         (tgt_idx, tgt_valid, pst, pcn, order_s, cover,

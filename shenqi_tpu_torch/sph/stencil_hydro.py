@@ -36,7 +36,8 @@ from ..gravity.shortrange_refined import _next_pow2
 from ..ops.blockwalk import _MAX_LANES
 from ..ops.treewalk import pair_dist, take
 from .kernels import KernelSpec, CUBIC
-from .hydro import HydroResult, _hydro_accum, _hydro_extra, entropy_rate
+from .hydro import (HydroResult, _hydro_accum, _hydro_extra, entropy_rate,
+                    hydro_walk_dense)
 from .stencil_density import (target_blocks, tier_order, tier_slices,
                               pack_rows, _BIG)
 
@@ -181,23 +182,72 @@ def _hydro_eval(stab, extra, tgt_ipos, tgt_idx, tgt_valid, sst, scn, sel,
         out[2][dst] = mv.reshape(-1)
 
 
+# rows of a block of the long-reach pass (targets and long sources alike)
+_LONG_BLK = 64
+
+
+def _morton_blocks(ipos, hsml, box):
+    """Morton-ordered blocks of _LONG_BLK rows: (rows [nb, B] int64 with
+    n for padding, their bbox centres and half-widths [nb, 3] float64 in
+    box units, and their largest hsml [nb])."""
+    from ..core.particles import POS_SCALE, u32
+    from ..ops.morton import morton_key
+    n = ipos.shape[0]
+    B = _LONG_BLK
+    nb = (n + B - 1) // B
+    order = torch.argsort(morton_key(ipos), stable=True)
+    rows = torch.nn.functional.pad(order, (0, nb * B - n),
+                                   value=n).reshape(nb, B)
+    valid = rows < n
+    rc = torch.clamp(rows, max=n - 1)
+    pos = u32(ipos[rc]).double() * (box / POS_SCALE)        # [nb, B, 3]
+    big = torch.tensor(np.inf, dtype=torch.float64, device=ipos.device)
+    lo = torch.amin(torch.where(valid[..., None], pos, big), 1)
+    hi = torch.amax(torch.where(valid[..., None], pos, -big), 1)
+    hmax = torch.amax(torch.where(valid, hsml[rc].double(), 0.0), 1)
+    return rows, 0.5 * (lo + hi), 0.5 * (hi - lo), hmax
+
+
 def _hydro_long_eval(long_rows, extra, tgt_ipos, tvalid, box, accum):
-    """Dense pass: every target against the long-reach sources, targets
-    in groups within the lane budget."""
+    """Every target against the long-reach sources within reach: targets
+    and long sources in Morton blocks of _LONG_BLK, a block pair kept
+    when the periodic distance of their boxes is below the larger of
+    their largest smoothing lengths (the pair cut is r < max(H_i, H_j);
+    the box test keeps a margin of 1e-4 of the reach), the kept pairs
+    evaluated in batches within the lane budget.  The sums are those of
+    every target against every long source, up to their order."""
     t = tgt_ipos.shape[0]
+    dev = tgt_ipos.device
+    out = _zero_carry((t + 1,), dev)
+    src_all = _unpack_src(long_rows)
+    trow, tc, th, thm = _morton_blocks(tgt_ipos, extra["hsml"], box)
+    lrow, lc, lh, lhm = _morton_blocks(src_all["ipos"], src_all["hsml"],
+                                       box)
     nl = long_rows.shape[0]
-    src = _unpack_src(long_rows[None])           # [1, nl]
-    out = _zero_carry((t,), tgt_ipos.device)
-    tch = max(1, _MAX_LANES // max(nl, 1))
-    for t0 in range(0, t, tch):
-        sl = slice(t0, min(t0 + tch, t))
-        dist, r2 = pair_dist(tgt_ipos[sl][:, None, :], src["ipos"], box)
-        live = tvalid[sl][:, None].expand(r2.shape)
-        res = accum(tuple(o[sl] for o in out), take(extra, sl), src, dist,
-                    r2, live)
-        for o, c in zip(out, res):
-            o[sl] = c
-    return out
+    d = torch.abs(tc[:, None, :] - lc[None, :, :])
+    d = torch.minimum(d, box - d) - th[:, None, :] - lh[None, :, :]
+    gap2 = torch.sum(torch.clamp(d, min=0.0) ** 2, -1)
+    reach = torch.maximum(thm[:, None], lhm[None, :]) * (1 + 1e-4)
+    ti, li = torch.nonzero(gap2 < reach * reach, as_tuple=True)
+    B = _LONG_BLK
+    chunk = max(1, _MAX_LANES // (B * B))
+    for c0 in range(0, ti.shape[0], chunk):
+        tr = trow[ti[c0:c0 + chunk]]                      # [k, B]
+        lr = lrow[li[c0:c0 + chunk]]
+        trc = torch.clamp(tr, max=t - 1)
+        src = {name: v[torch.clamp(lr, max=nl - 1)][:, None]
+               for name, v in src_all.items()}            # [k, 1, B]
+        dist, r2 = pair_dist(tgt_ipos[trc][:, :, None, :], src["ipos"],
+                             box)
+        live = ((tr < t) & tvalid[trc])[:, :, None] & (lr < nl)[:, None, :]
+        acc, dts, mv = accum(_zero_carry(tr.shape, dev), take(extra, trc),
+                             src, dist, r2, live)
+        del dist, r2
+        idx = tr.reshape(-1)
+        out[0].index_add_(0, idx, acc.reshape(-1, 3))
+        out[1].index_add_(0, idx, dts.reshape(-1))
+        out[2].scatter_reduce_(0, idx, mv.reshape(-1), reduce="amax")
+    return tuple(o[:t] for o in out)
 
 
 def stencil_hydro_walk(ipos_src, src_fields, targets, par,
@@ -232,7 +282,9 @@ def stencil_hydro_walk(ipos_src, src_fields, targets, par,
 
     tvalid_t = (targets["hsml"] > 0) if tvalid is None \
         else (tvalid & (targets["hsml"] > 0))
-    tbc_key = ("hyst_tbc", k, sub)
+    # capacity per power-of-two class of the target count (as the
+    # density walk's)
+    tbc_key = ("hyst_tbc", k, sub, _next_pow2(T))
     TBC = tier_cache.get(tbc_key, default_tbc(T, sub))
     while True:
         (tgt_idx, tgt_valid, sst, scn, order_s, cover,
@@ -271,3 +323,46 @@ def stencil_hydro_walk(ipos_src, src_fields, targets, par,
                                                 par, tf),
                         max_signal_vel=mv), cover_t[:t], int(n_cover),
             n_long)
+
+
+# candidate cells (targets x W^3) per call of the cover patch: bounds its
+# [targets, W^3, 3] int64 arrays to 200 MB (sph/density.py's bound)
+_COVER_CELLS = 1 << 23
+
+
+def hydro_cover_patch(ipos_src, src_fields, targets, par, dense_src,
+                      spec: KernelSpec = CUBIC, k: int = None,
+                      tier_cache: dict = None, tf=None,
+                      tvalid=None) -> HydroResult:
+    """The targets stencil_hydro_walk flags `cover`, each redone on its
+    own stencil: sub-blocks of one target, whose window W =
+    floor(2 max(H, hcut) / cell) + 2 holds its reach and the regular
+    sources' (the long-reach sources come in as in the walk).  Every pair
+    within max(h_i, h_j) is found, so the sums are those of the JAX
+    package's patch against every source (oracle_patch,
+    simulation_gas.py:513-540) up to the order of summation, which costs
+    a pass over all sources per target.  That pass (hydro_walk_dense over
+    `dense_src`) remains where the window would hold an eighth of the
+    grid or more.  k: the grid level (stencil_hydro_walk's default when
+    None)."""
+    t = targets["ipos"].shape[0]
+    box = float(par.boxsize)
+    if k is None:
+        sep = box / max(ipos_src.shape[0], 1) ** (1.0 / 3.0)
+        k = int(np.clip(round(np.log2(box / (2.4 * sep))), 1, 10))
+    cell = box / (1 << k)
+    W = int(2 * max(float(targets["hsml"].max()), 2.0 * cell) / cell) + 2
+    if 8 * W ** 3 >= 8 ** k:
+        return hydro_walk_dense(dense_src, targets, par, spec, tf=tf)
+    chunk = max(1, _COVER_CELLS // W ** 3)
+    parts = []
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, min(c0 + chunk, t))
+        res, _, nc, _ = stencil_hydro_walk(
+            ipos_src, src_fields, {n: v[sl] for n, v in targets.items()},
+            par, spec=spec, k=k, sub=1, W=W, tier_cache=tier_cache, tf=tf,
+            tvalid=None if tvalid is None else tvalid[sl])
+        if nc:
+            raise RuntimeError(f"hydro_cover_patch: window {W} too small")
+        parts.append(res)
+    return HydroResult(*(torch.cat(x) for x in zip(*parts)))

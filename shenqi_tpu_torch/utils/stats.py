@@ -1,9 +1,7 @@
 """Run statistics: energy.txt (shenqi_tpu/utils/stats.py:33-88, the
-stats.cpp analog) on the port's ParticleData.
-
-The DM slice writes the energy line only, with no internal energy; the
-gas term, the sfr.txt and the black-hole writers come with the gas slice
-(ROADMAP A.7, A.8).
+stats.cpp analog) on the port's ParticleData, and sfr.txt (stats.py:89
+`sfr_statistics`).  The energy line has no internal energy term; the
+black-hole writers come with ROADMAP A.8's black holes.
 """
 
 from __future__ import annotations
@@ -39,4 +37,21 @@ def energy_statistics(fd, atime, particles):
     ekin = 0.5 * float((mass * (vel ** 2).sum(axis=1)).sum()) / atime ** 2
     epot = 0.5 * float((mass * pot).sum())
     fd.write(f"{atime:g} {0.0:g} {epot:g} {ekin:g}\n")
+    fd.flush()
+
+
+def sfr_statistics(fd, atime, total_sm, totsfrrate, rate_in_msunperyear,
+                   total_sum_mass_stars, avg_dtime, total_sum_part,
+                   tot_newstars):
+    """Append one line to sfr.txt in the reference's 8-column layout
+    (sfr_eff.cpp write_sfr_txt; shenqi_tpu/utils/stats.py:89): scale
+    factor, expected stellar mass formed (internal units), instantaneous
+    SFR of active particles [Msun/yr], expected SFR from total_sm
+    [Msun/yr], actual spawned stellar mass this step (internal units),
+    mean active-particle timestep, number of star-forming particles,
+    number of new stars this step."""
+    fd.write(f"{atime:g} {total_sm:g} {totsfrrate:g} "
+             f"{rate_in_msunperyear:g} {total_sum_mass_stars:g} "
+             f"{avg_dtime:g} {int(total_sum_part)} "
+             f"{int(tot_newstars)}\n")
     fd.flush()

@@ -1,0 +1,93 @@
+"""The threefry2x32 counter-based generator of `jax.random` (JAX 0.9 with
+`jax_threefry_partitionable` on, its default), so that the port draws the
+same numbers from the same keys as the JAX package.
+
+  * a key is a pair of uint32 words, held here as a tuple of two Python
+    ints; `PRNGKey(seed)` is (seed >> 32, seed & 0xFFFFFFFF);
+  * `split(key, n)` hashes the counters (0, i), i < n: key i is the
+    hash's two words (jax/_src/prng.py `_threefry_split_foldlike`);
+  * `bits(key, shape)` hashes the counters (i >> 32, i & 0xFFFFFFFF) of
+    the flat row-major index i and XORs the two words
+    (`_threefry_random_bits_partitionable`);
+  * `uniform(key, shape)` keeps the top 23 bits as an f32 mantissa in
+    [1, 2) and subtracts 1 (jax/_src/random.py `_uniform`).
+
+The arithmetic is int64 with 32-bit masks: torch has no uint32 add,
+shift or compare (ROADMAP C.1).  Key chains run on the host; `bits` and
+`uniform` run on the device of the caller's choosing, and `start`
+gives the flat index of a block's first element, so a large draw can be
+made a block of rows at a time with the counters the whole shape has.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1: int, k2: int, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter words x0, x1
+    (int64 tensors of uint32 values) under the key (k1, k2); returns the
+    two output words (jax/_src/prng.py `_threefry2x32_lowering`)."""
+    ks = (k1 & _M32, k2 & _M32, (k1 ^ k2 ^ 0x1BD11BDA) & _M32)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> tuple:
+    """jax.random.PRNGKey(seed) for a seed in [0, 2^31)."""
+    return ((seed >> 32) & _M32, seed & _M32)
+
+
+def split(key: tuple, num: int = 2) -> list:
+    """jax.random.split(key, num), as a list of keys."""
+    lo = torch.arange(num, dtype=torch.int64)
+    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return list(zip(b1.tolist(), b2.tolist()))
+
+
+def _counters(shape, start: int, device):
+    n = math.prod(shape)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    return i >> 32, i & _M32
+
+
+def bits(key: tuple, shape=(), start: int = 0, device="cpu"):
+    """jax.random.bits(key, shape, uint32) as int64 tensor values, or
+    elements [start, start + prod(shape)) of a larger draw's flat order.
+    shape () gives a Python int."""
+    hi, lo = _counters(shape, start, device)
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    out = (b1 ^ b2).reshape(shape)
+    return int(out) if shape == () else out
+
+
+def uniform(key: tuple, shape, start: int = 0, device="cpu"):
+    """jax.random.uniform(key, shape) in f32 over [0, 1), or the block of
+    a larger draw's flat order starting at `start`."""
+    b = bits(key, tuple(shape), start, device)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def mulmod32(a, b):
+    """uint32 a*b mod 2^32 for int64 tensors (or ints) of uint32 values:
+    the product split into 16-bit halves of `a`, so that no partial
+    product reaches 2^63."""
+    hi = ((a >> 16) * b) & 0xFFFF
+    return ((hi << 16) + (a & 0xFFFF) * b) & _M32

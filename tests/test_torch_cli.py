@@ -215,8 +215,8 @@ def test_resume_and_hci_stop(ics, tmp_path):
 
 def test_unported_refused(ics, tmp_path):
     """What the port does not run yet is refused, naming its ROADMAP
-    item: gas particles with HydroOn and a subgrid switch on (A.8) and
-    RestartFlag 99 (A.10).  The paramfile leaves SplitGravityTimestepsOn
+    item: gas particles with HydroOn and an unported subgrid switch on
+    (BlackHoleOn, A.8) and RestartFlag 99 (A.10).  The paramfile leaves SplitGravityTimestepsOn
     at its default."""
     od = tmp_path / "o"
     od.mkdir()
@@ -235,9 +235,9 @@ def test_unported_refused(ics, tmp_path):
         for t in (0, 1)})
     pf = tmp_path / "gas.gadget"
     pf.write_text(_GADGET.replace("HydroOn = 0", "HydroOn = 1").replace(
-        "CoolingOn = 0", "CoolingOn = 1").format(
+        "BlackHoleOn = 0", "BlackHoleOn = 1").format(
         ic=od / "IC_gas", out=od, a=0.125, fof=0, nmesh=16))
-    with pytest.raises(NotImplementedError, match="CoolingOn.*A.8"):
+    with pytest.raises(NotImplementedError, match="BlackHoleOn.*A.8"):
         tg.run_gadget(str(pf), device="cpu")
     with pytest.raises(NotImplementedError, match="RestartFlag 99"):
         tg.run_gadget(str(pf), restart_flag=99, device="cpu")

@@ -303,3 +303,148 @@ def test_gas_run_on_card_equals_cpu():
                  (sc.particles.hsml[:n], sk.particles.hsml[:n])):
         a, b = a.numpy(), b.cpu().numpy()
         assert (np.abs(a - b) / np.abs(a) < 1e-3).mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_subgrid_run_on_card_equals_cpu():
+    """The subgrid steps of tests/test_torch_subgrid.py (8^3 gas + 8^3 DM,
+    a clump above the SF threshold, four old stars, cooling, SH03 star
+    formation, ofjt10 winds at 10 km/s a, metal return), 5 steps on the
+    card and on the CPU: star rows, IDs, types and masks identical;
+    positions within 2e-5 of the box, velocity outliers under 5e-3;
+    entropy and density within 1e-3 relative for >= 99% of the gas rows;
+    metallicity within 1e-4 of its max; total mass to 1e-9."""
+    from shenqi_tpu_torch.core.timeline import Timeline
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.cosmology.power import InputPower
+    from shenqi_tpu_torch.genic.ic import (setup_grid, gaussian_field,
+                                           displacement_fields)
+    from shenqi_tpu_torch.physics import (cooling_rates as cr, sfr as sf,
+                                          winds as wi)
+    from shenqi_tpu_torch.physics.metal_return import MetalReturn
+    from shenqi_tpu_torch.simulation import Simulation
+    from shenqi_tpu_torch.simulation_gas import GasPhysics
+    from shenqi_tpu_torch.sph.kernels import QUINTIC
+    from shenqi_tpu_torch.utils.units import default_units
+    import os
+    dev = _card()
+    box, ng, a_ic = 64000.0, 8, 0.1
+    units = default_units()
+    cp = Cosmology(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
+                   HubbleParam=0.7, RadiationOn=1)
+    cp.init(a_ic, units)
+    power = InputPower.analytic_eh(cp, units.UnitLength_in_cm)
+    power.normalize(sigma8=0.8, input_power_redshift=0, time_ic=a_ic)
+    g_k = gaussian_field(181170, ng, unitary=True)
+    lat_gas, ids_gas = setup_grid(ng, box, id_offset=ng ** 3 + 1,
+                                  shift_frac=0.0)
+    lat_dm, ids_dm = setup_grid(ng, box, id_offset=1, shift_frac=0.5)
+    rg = displacement_fields(g_k, power, cp, lat_gas, box, a_ic,
+                             device="cpu")
+    rd = displacement_fields(g_k, power, cp, lat_dm, box, a_ic, device="cpu")
+    rng = np.random.default_rng(5)
+    pos = rg.pos.copy()
+    r = 0.008 * box * rng.uniform(0, 1, 128) ** (1 / 3)
+    u = rng.normal(size=(128, 3))
+    u /= np.linalg.norm(u, axis=1)[:, None]
+    pos[:128] = np.array([0.3, 0.4, 0.5]) * box + r[:, None] * u
+    m_gas = cp.OmegaBaryon * cp.RhoCrit * box ** 3 / ng ** 3
+    m_dm = (cp.Omega0 - cp.OmegaBaryon) * cp.RhoCrit * box ** 3 / ng ** 3
+    species = [(0, pos, rg.vel * a_ic, m_gas, ids_gas),
+               (1, rd.pos, rd.vel * a_ic, m_dm, ids_dm)]
+    yields = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data_yields")
+    old = np.arange(300, 304)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        coolpar = cr.CoolingParams(fBar=cp.OmegaBaryon / cp.OmegaCDM)
+        crit = (5e-5 * units.UnitMass_in_g / units.UnitLength_in_cm ** 3
+                * 0.76 / 1.6726e-24)
+        sfp = sf.SFRParams(MaxSfrTimescale=0.01, CritPhysDensity=crit).init(
+            cp, units, m_gas, cr.UVBG(), coolpar)
+        wp = wi.WindParams(WindModel=wi.WIND_MODEL_OFJT10).init(
+            sfp.FactorSN, sfp.EgySpecSN, sfp.PhysDensThresh,
+            units.UnitTime_in_s)
+        gp = GasPhysics(kernel=QUINTIC, cooling_on=True, sfr_on=True,
+                        winds_on=True, metal_return_on=True, coolpar=coolpar,
+                        sfrpar=sfp, windpar=wp,
+                        coolunits=sf.CoolingUnits.create(units,
+                                                         cp.HubbleParam),
+                        metals=MetalReturn.load(yields))
+        sim = Simulation.from_species(
+            species, cp, box, 2 * ng, Timeline.setup([0.125], a_ic, 0.125),
+            a_ic, gas_u0=100.0, gas_physics=gp, star_headroom=256, device=d)
+        p, g = sim.particles, sim.gas
+        pt = p.ptype.clone()
+        pt[old] = 4
+        sim.particles = p.replace(ptype=pt)
+        g.birth_a[old] = 0.05
+        g.star_metallicity[old] = 0.01
+        g.mass0[old] = p.mass[old]
+        g.vdisp.fill_(10.0 * a_ic)
+        sim.hierarchical = True
+        sim.run(max_steps=5)
+        runs.append(sim)
+    sk, sc = runs
+    assert sk.atime() == sc.atime()
+    for f in ("mask", "ptype", "id_lo", "id_hi"):
+        assert torch.equal(getattr(sk.particles, f).cpu(),
+                           getattr(sc.particles, f)), f
+    stars = (sc.particles.ptype == 4) & sc.particles.mask
+    assert int(stars.sum()) >= 12
+    alive = sc.particles.mask.numpy()
+    d = np.abs(sk.particles.ipos_u32().astype(np.int64)
+               - sc.particles.ipos_u32().astype(np.int64))[alive]
+    assert np.minimum(d, 2 ** 32 - d).max() < 2e-5 * 2 ** 32
+    v1 = sc.particles.vel.numpy()[alive]
+    v2 = sk.particles.vel.cpu().numpy()[alive]
+    outlier = (np.linalg.norm(v1 - v2, axis=1)
+               > 1e-3 * np.maximum(np.linalg.norm(v1, axis=1), 1e-30))
+    assert outlier.mean() < 5e-3
+    n = sc.gas.ngas
+    gas = ((sc.particles.ptype[:n] == 0) & sc.particles.mask[:n]).numpy()
+    for a, b in ((sc.gas.entropy, sk.gas.entropy),
+                 (sc.gas.density, sk.gas.density)):
+        a, b = a.numpy()[gas], b.cpu().numpy()[gas]
+        assert (np.abs(a - b) / np.abs(a) < 1e-3).mean() >= 0.99
+    zc, zk = sc.gas.metallicity.numpy(), sk.gas.metallicity.cpu().numpy()
+    assert zc.max() > 0 and np.abs(zc - zk).max() <= 1e-4 * zc.max()
+    assert float(sc.particles.mass.double().sum()) == pytest.approx(
+        float(sk.particles.mass.double().sum()), rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_cooling_graph_equals_eager():
+    """The rate evaluation replayed from its CUDA graph equals the same
+    torch ops run one by one on the card, bit for bit, at row counts in
+    three buckets and at two redshifts; the implicit solver on the card
+    agrees with the CPU's within 1e-4 relative (tests/test_torch_cooling.py's
+    limit)."""
+    from shenqi_tpu_torch.physics import cooling_rates as tc
+    dev = _card()
+    p = tc.CoolingParams(MinGasTemp=5.0)
+    rng = np.random.default_rng(1)
+    for n in (100, 3000, 70000):
+        nh = 10 ** rng.uniform(-5, 0, n)
+        u = torch.tensor(10 ** rng.uniform(10, 14, n), dtype=torch.float32)
+        rho = torch.tensor(nh / 0.76 * 1.6726e-24, dtype=torch.float32)
+        ne = torch.tensor(rng.uniform(0, 1.2, n), dtype=torch.float32)
+        for z in (9.0, 8.5):
+            a = tc.heatingcooling_rate(rho.to(dev), u.to(dev), 0.24, z,
+                                       tc.UVBG(), p, ne.to(dev))
+            b = tc.get_heatingcooling_rate(rho.to(dev), u.to(dev), 0.24,
+                                           torch.tensor(z, device=dev),
+                                           tc.UVBG(), p, ne_init=ne.to(dev))
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    dt = torch.tensor(10 ** rng.uniform(12, 15, n), dtype=torch.float32)
+    uc, nc = tc.do_cooling(u, rho, dt, 0.24, 9.0, tc.UVBG(), p,
+                           min_egyspec_cgs=1e9, ne_init=ne)
+    uk, nk = tc.do_cooling(u.to(dev), rho.to(dev), dt.to(dev), 0.24, 9.0,
+                           tc.UVBG(), p, min_egyspec_cgs=1e9,
+                           ne_init=ne.to(dev))
+    uc = uc.double().numpy()
+    assert (np.abs(uk.cpu().numpy() - uc) <= 1e-4 * uc).all()
+    nc = nc.double().numpy()
+    assert (np.abs(nk.cpu().numpy() - nc)
+            <= np.maximum(1e-4 * nc, 2.4e-7)).all()

@@ -14,7 +14,21 @@ and CLASS-layout transfer table.
     (convert.gas_state_from_numpy) equal the JAX package's, bit for bit;
   * a RestartFlag 1 resume: the restored gas state equal in both packages
     (bit for bit) and one step on within 1e-3;
-  * the subgrid switches (ROADMAP A.8) refused, each by name.
+  * star-small's subgrid switches (CoolingOn, StarformationOn, WindOn at
+    its ofjt10 default, MetalReturnOn; no TREECOOL file, BlackHoleOn 0)
+    on one small IC written here: 8^3 gas + 8^3 DM in a 5 Mpc/h box at
+    a = 0.1, a clump of 128 gas rows inside 0.5% of the box above the SF
+    threshold, and four star rows born at a = 0.05 with their blocks;
+    the run to a = 0.1002 with snapshots and FOF at 0.1001 and 0.1002:
+    the sfr.txt lines (times and counts identical, the rest within 1e-5
+    relative), every star block and the star IDs identical but the
+    masses and metallicities (within 1e-5 relative), the gas blocks
+    within 1e-4 of their max; a RestartFlag 1 resume from the last
+    snapshot that restores the star state bit for bit in both packages
+    and steps on;
+  * the switches of ported subgrid stages run; the rest of ROADMAP A.8
+    (black holes, helium and excursion-set reionization, metal-line
+    cooling and UV fluctuation tables) refused, each by name.
 """
 
 import shutil
@@ -32,14 +46,19 @@ from shenqi_tpu.cli.genic_main import run_genic as j_genic
 from shenqi_tpu_torch.cli import gadget_main as tg
 from shenqi_tpu_torch.cli.genic_main import run_genic as t_genic
 from shenqi_tpu_torch.convert import gas_state_from_numpy, particles_from_numpy
-from shenqi_tpu_torch.io.snapshot import read_snapshot
+from shenqi_tpu_torch.cosmology.background import Cosmology
+from shenqi_tpu_torch.io.snapshot import (SnapshotHeader, read_snapshot,
+                                          write_snapshot)
 from shenqi_tpu_torch.simulation_gas import GasPhysics
+from shenqi_tpu_torch.utils.units import default_units
 
 torch.set_num_threads(2)
 BOX = 128.0
 SUBGRID = ("CoolingOn", "StarformationOn", "WindOn", "BlackHoleOn",
            "MetalReturnOn", "QSOLightupOn", "HeliumReionizationOn",
            "ExcursionSetReionOn")
+PORTED = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn")
+STAR_SMALL = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn")
 
 
 @pytest.fixture(scope="module")
@@ -189,18 +208,202 @@ def test_restart_restores_gas_state(runs, monkeypatch):
 
 @pytest.mark.parametrize("switch", SUBGRID)
 def test_subgrid_switch_refused(runs, switch):
-    """A gas run with any subgrid master switch on is refused, naming the
-    switch and ROADMAP A.8 (GasPhysics refuses its own switches too)."""
+    """A gas run with a switch of an unported subgrid stage on is refused,
+    naming the switch and ROADMAP A.8 (GasPhysics refuses its own
+    switches too); with a ported stage's switch on, the run proceeds."""
     tmp, ic, _ = runs
     pf = tmp / f"refuse_{switch}.gadget"
-    text = _GADGET_GAS.format(ic=ic, out=tmp / "refused", outputs="0.0105",
-                              a=0.0105)
+    text = _GADGET_GAS.format(ic=ic, out=tmp / f"refused_{switch}",
+                              outputs="0.0105", a=0.0105)
     if f"{switch} = 0" in text:
         text = text.replace(f"{switch} = 0", f"{switch} = 1")
     else:
         text += f"{switch} = 1\n"
     pf.write_text(text)
+    if switch in PORTED:
+        sim = tg.run_gadget(str(pf), max_steps=2, device="cpu")
+        assert sim.atime() > 0.01
+        assert getattr(sim.gas_physics, {
+            "CoolingOn": "cooling_on", "StarformationOn": "sfr_on",
+            "WindOn": "winds_on", "MetalReturnOn": "metal_return_on"}[
+                switch])
+        return
     with pytest.raises(NotImplementedError, match=f"{switch}.*A\\.8"):
         tg.run_gadget(str(pf), device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
-        GasPhysics(cooling_on=True)
+        GasPhysics(bh_on=True)
+
+
+@pytest.mark.parametrize("line", ["MetalCoolFile = x.hdf5\nMetalCoolingOn = 1",
+                                  "UVFluctuationFile = x.txt"])
+def test_subgrid_file_refused(runs, line):
+    """The metal-line cooling and UV fluctuation tables are refused by
+    name, naming ROADMAP A.8."""
+    tmp, ic, _ = runs
+    pf = tmp / "refuse_file.gadget"
+    pf.write_text(_GADGET_GAS.format(ic=ic, out=tmp / "refused_file",
+                                     outputs="0.0105", a=0.0105)
+                  .replace("CoolingOn = 0", "CoolingOn = 1") + line + "\n")
+    name = line.split(" ")[0]
+    with pytest.raises(NotImplementedError, match=f"{name}.*A\\.8"):
+        tg.run_gadget(str(pf), device="cpu")
+
+
+# ------------------------------------------------------------ star-small
+SS_BOX, SS_NG, SS_A = 5000.0, 8, 0.1
+
+
+def _star_ic(path):
+    """8^3 gas + 8^3 DM at a = 0.1 in a 5 Mpc/h box: the gas lattice
+    jittered, 128 gas rows in a clump of radius 0.5% of the box around
+    (0.3, 0.4, 0.5), four old stars with their blocks, and the gas
+    blocks a resume reads (so the run starts from that state)."""
+    cp = Cosmology(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
+                   HubbleParam=0.7, RadiationOn=1)
+    cp.init(SS_A, default_units())
+    rng = np.random.default_rng(7)
+    n = SS_NG ** 3
+    g = (np.arange(SS_NG) + 0.5) * SS_BOX / SS_NG
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    gpos = lat + rng.normal(0, 0.05 * SS_BOX / SS_NG, lat.shape)
+    k = 128
+    r = 0.005 * SS_BOX * rng.uniform(0, 1, k) ** (1 / 3)
+    d = rng.normal(size=(k, 3))
+    d /= np.linalg.norm(d, axis=1)[:, None]
+    gpos[:k] = np.array([0.3, 0.4, 0.5]) * SS_BOX + r[:, None] * d
+    mg = cp.OmegaBaryon * cp.RhoCrit * SS_BOX ** 3 / n
+    md = (cp.Omega0 - cp.OmegaBaryon) * cp.RhoCrit * SS_BOX ** 3 / n
+    ns = 4
+    spos = lat[rng.choice(n, ns, replace=False)] + 0.3
+
+    def vel(m):
+        return rng.normal(0, 5, (m, 3)).astype(np.float32)
+
+    def f32(m, v):
+        return np.full(m, v, np.float32)
+
+    blocks = {
+        0: {"Position": gpos % SS_BOX, "Velocity": vel(n),
+            "Mass": f32(n, mg), "ID": np.arange(1, n + 1, dtype=np.uint64),
+            "Density": f32(n, cp.OmegaBaryon * cp.RhoCrit),
+            "InternalEnergy": f32(n, 30.0),
+            "SmoothingLength": f32(n, 2 * SS_BOX / SS_NG)},
+        1: {"Position": (lat + 0.5 * SS_BOX / SS_NG) % SS_BOX,
+            "Velocity": vel(n), "Mass": f32(n, md),
+            "ID": np.arange(n + 1, 2 * n + 1, dtype=np.uint64)},
+        4: {"Position": spos, "Velocity": vel(ns), "Mass": f32(ns, mg / 2),
+            "ID": np.arange(2 * n + 1, 2 * n + ns + 1, dtype=np.uint64),
+            "StellarFormationTime": f32(ns, 0.05),
+            "Metallicity": f32(ns, 0.01),
+            "TotalMassReturned": f32(ns, 0.0),
+            "LastEnrichmentMyr": f32(ns, 0.0)}}
+    write_snapshot(str(path), SnapshotHeader(
+        TotNumPart=np.array([n, n, 0, 0, ns, 0], np.uint64),
+        MassTable=np.zeros(6), Time=SS_A, BoxSize=SS_BOX, Omega0=0.288,
+        OmegaLambda=0.712, OmegaBaryon=0.0472, HubbleParam=0.7,
+        UsePeculiarVelocity=1, TimeIC=SS_A), blocks)
+    return str(path)
+
+
+def _star_params(path, ic, out, outputs, a):
+    text = _GADGET_GAS.format(ic=ic, out=out, outputs=outputs, a=a)
+    for sw in STAR_SMALL:
+        text = text.replace(f"{sw} = 0", f"{sw} = 1")
+    path.write_text(text)
+    return str(path)
+
+
+def _sfr_lines(path):
+    return [ln.split() for ln in path.read_text().splitlines()
+            if not ln.startswith("#")]
+
+
+@pytest.fixture(scope="module")
+def star_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("starsmall")
+    ic = _star_ic(tmp / "IC")
+    out = {}
+    for name in ("jax", "torch"):
+        od = tmp / f"run_{name}"
+        pf = _star_params(tmp / f"{name}.gadget", ic, od, "0.1001,0.1002",
+                          0.1002)
+        out[name] = ((jg.run_gadget(pf) if name == "jax"
+                      else tg.run_gadget(pf, device="cpu")), od)
+    return tmp, ic, out
+
+
+def test_star_small_cli_parity(star_runs):
+    _, _, out = star_runs
+    (sj, oj), (st, ot) = out["jax"], out["torch"]
+    assert st.gas_physics.sfr_on and st.gas_physics.winds_on \
+        and st.gas_physics.metal_return_on
+    assert st.atime() == pytest.approx(sj.atime())
+    lj, lt = _sfr_lines(oj / "sfr.txt"), _sfr_lines(ot / "sfr.txt")
+    assert len(lt) == len(lj) >= 4 and all(len(r) == 8 for r in lt)
+    assert sum(int(r[7]) for r in lj) >= 2
+    for rj, rt in zip(lj, lt):
+        assert rt[0] == rj[0] and rt[6:] == rj[6:]
+        for a, b in zip(rj[1:6], rt[1:6]):
+            assert abs(float(b) - float(a)) <= 1e-5 * abs(float(a))
+    for snap in ("PART_000", "PART_001"):
+        _, bj = read_snapshot(str(oj / snap))
+        _, bt = read_snapshot(str(ot / snap))
+        assert sorted(bt) == sorted(bj) == [0, 1, 4]
+        assert sorted(bt[4]) == sorted(bj[4])
+        np.testing.assert_array_equal(bt[4]["ID"], bj[4]["ID"])
+        assert len(bj[4]["ID"]) > 4
+        for k in ("StellarFormationTime", "TotalMassReturned",
+                  "LastEnrichmentMyr", "Metallicity", "Mass"):
+            a = np.asarray(bj[4][k], np.float64)
+            assert (np.abs(bt[4][k] - a) <= 1e-5 * np.abs(a)).all(), k
+        for k in ("ID", "Generation"):
+            np.testing.assert_array_equal(bt[0][k], bj[0][k])
+        for k in ("SmoothingLength", "Density", "EgyWtDensity",
+                  "InternalEnergy", "Velocity", "Metallicity",
+                  "StarFormationRate", "DelayTime", "Mass"):
+            a = np.asarray(bj[0][k], np.float64)
+            assert np.abs(np.asarray(bt[0][k]) - a).max() \
+                <= 1e-4 * np.abs(a).max(), (snap, k)
+        assert (bt[0]["Metallicity"] > 0).any()
+        assert (ot / snap.replace("PART", "PIG")).is_dir()
+
+
+def test_star_small_restart_restores_stars(star_runs, monkeypatch):
+    """RestartFlag 1 from the JAX run's last snapshot in both packages:
+    the restored gas and star state bit for bit the same, and both step
+    on."""
+    tmp, ic, out = star_runs
+    _, oj = out["jax"]
+    restored = {}
+    for name, mod in (("jax", jg), ("torch", tg)):
+        real = mod._restore_gas_state
+
+        def spy(sim, *a, _real=real, _name=name, **kw):
+            _real(sim, *a, **kw)
+            g = sim.gas
+            restored[_name] = {
+                f: np.array(getattr(g, f)) for f in
+                ("entropy", "density", "metallicity", "birth_a",
+                 "star_metallicity", "last_enrich_myr", "total_returned",
+                 "mass0")}
+        monkeypatch.setattr(mod, "_restore_gas_state", spy)
+    sims = {}
+    for name in ("jax", "torch"):
+        od = tmp / f"resume_{name}"
+        shutil.copytree(oj, od)
+        pf = _star_params(tmp / f"r{name}.gadget", ic, od,
+                          "0.1001,0.1002,0.1003", 0.1003)
+        sims[name] = (jg.run_gadget(pf, 1, max_steps=2) if name == "jax"
+                      else tg.run_gadget(pf, 1, max_steps=2, device="cpu"))
+    _, b4 = read_snapshot(str(oj / "PART_001"))
+    for k, v in restored["jax"].items():
+        np.testing.assert_array_equal(restored["torch"][k], v, err_msg=k)
+    ts_ = sims["torch"]
+    assert ts_.atime() == pytest.approx(sims["jax"].atime())
+    assert ts_.atime() > 0.1002
+    stars = np.nonzero(ts_.particles.ptype.numpy() == 4)[0]
+    assert len(stars) >= len(b4[4]["ID"])
+    birth = restored["torch"]["birth_a"]
+    assert (birth > 0).sum() == len(b4[4]["ID"])
+    np.testing.assert_array_equal(np.sort(birth[birth > 0]),
+                                  np.sort(b4[4]["StellarFormationTime"]))

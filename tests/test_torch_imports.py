@@ -39,7 +39,10 @@ def test_port_imports_no_jax():
                  "physics.neutrinos_lra", "genic.thermal",
                  "simulation_gas", "ops.treewalk", "sph.kernels",
                  "sph.density", "sph.stencil_density", "sph.hydro",
-                 "sph.stencil_hydro"):
+                 "sph.stencil_hydro", "utils.threefry",
+                 "physics.cooling_rates", "physics.sfr", "physics.winds",
+                 "physics.veldisp", "physics.metal_return",
+                 "physics.blackhole"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
