@@ -43,8 +43,9 @@ BUDGET_S for the whole run, the kernel build included:
           against the plain version, a second launch's bits and its
           bound, as in `kernel`
   dmsmall dm-small as its paramfile stands but for its end: 64^3, box
-          64000 kpc/h, mesh 128, z = 9 to a = 0.2 (0.25 in dm-small) with
-          FOF at 0.15 and 0.2 (the EH table for its CLASS one); the bins and level calls over the
+          64000 kpc/h, mesh 128, z = 9 to a = 0.15 (0.25 in dm-small)
+          with FOF at 0.15 (the EH table for its CLASS one); the bins
+          and level calls over the
           run, the cost of a level call by its targets, host syncs per
           step (torch's sync debug mode), each FOF's groups, stages and
           peak memory, the momentum change, and every launch shape
@@ -78,24 +79,48 @@ BUDGET_S for the whole run, the kernel build included:
   stars   star-small (validation/star_small.py:36-77): 64^3 gas + 64^3
           DM, box 5 Mpc/h, z = 9, CoolingOn, StarformationOn, WindOn
           (ofjt10), MetalReturnOn, pressure-entropy SPH, FOF at each
-          output, no TREECOOL; cuts: BlackHoleOn 0, the EH table for
-          class_pk_9.dat, the run ends at STARS_RUNS' TimeMax.  genic_main,
-          the run, a RestartFlag 1 resume for one step; checks: stars
-          formed (the first one's a printed against star-small's 0.115,
-          STARS_FIRST_BY), sfr.txt's 8 columns, wind kicks, metal returned, gas
-          metallicity, total mass within 1e-6, every gas and star field
-          finite (entropy, density positive), every star in a PIG group,
-          the star rows restored exactly on the resume, every launch shape
-          against the plain version; per step the stages, stars formed
-          (split, whole), wind kicks, metal-return stars, host syncs; peak
-          memory; one source step split by piece and under torch.profiler
+          output, no TREECOOL; cuts: BlackHoleOn 0 (on in `bh`), the EH
+          table for class_pk_9.dat, the run ends at STARS_RUNS' TimeMax.
+          genic_main and the run; checks: stars formed (the first one's a
+          printed against star-small's 0.115, STARS_FIRST_BY), sfr.txt's
+          8 columns, wind kicks, metal returned, gas metallicity, total
+          mass within 1e-6, every gas and star field finite (entropy,
+          density positive), every star in a PIG group, every launch
+          shape against the plain version; per step the stages, stars
+          formed (split, whole), wind kicks, metal-return stars, host
+          syncs; peak memory
+  bh      star-small with BlackHoleOn 1 (every BH parameter at its
+          default) resumed with RestartFlag 1 from the `stars` run's last
+          output (a = 0.118) to BH_RUNS' output with FOF, past the first
+          PM step's seeding FOF, then a second RestartFlag 1 resume for
+          one step.  The one cut: MinFoFMassForNewSeed and
+          MinMStarForNewSeed lowered below the groups that hold the stars
+          at 0.118 (BH_SEEDING; star-small seeds at a = 0.14-0.15).
+          Checks: the star rows restored exactly at the start; BHs seeded
+          at the seed mass; blackholes.txt from the seeding step with its
+          count and mass; accretion (mdot > 0, mass above the seed); the
+          feedback never lowering an entropy and raising some;
+          BlackholeDetails.bin in the JAX record layout with the seeded
+          IDs; total mass within 1e-6; every field finite; every BH in a
+          PIG group and the PIG's BH count the run's; the BH rows
+          restored exactly on the second resume; every launch shape
+          against the plain version.  Printed: star-small's first
+          blackholes.txt line (0.14-0.15) and PIG BH counts; per step the
+          BH stage, seeds, swallowed rows, mergers, the other stages and
+          host syncs; each FOF's seconds; peak memory; one do_cooling of
+          the end state with a metal cooling table and a fluctuating-UVB
+          table beside the table-free solve.  The CPU rehearsal runs it at
+          2 x 16^3 from the rehearsal's `stars` output (0.104) to 0.108
+          with STARS_REHEARSAL's SF thresholds and BH_REHEARSAL_SEEDING
+          (16^3 forms no FOF group of 8 or more: groups of 4, seeds in any
+          group holding a star)
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`slice`, `dmsmall`, `nu`, `gas`, `gas128` and `stars`, with the row of
-its largest launch shape),
+`slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars` and `bh`, with the row
+of its largest launch shape),
 the JSON kernel table (the `cli` run's launches and largest shape), the
 card's name and power limit, and the run's result as one JSON object.
 `--steps-log PATH` appends dm-small's per-step record (bins, force
@@ -128,11 +153,12 @@ REHEARSAL_BUDGET_S = 1500.0
 GAS_A_IC = 0.01
 GAS_RUNS = (("0.01,0.012,0.015", 0.015), ("0.01,0.012,0.015,0.016", 0.016))
 GAS128_STEPS = 1
-# dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to 0.2
-# to leave the budget to `stars` (0.25 until then); the neutrino
+# dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to its
+# first output, 0.15, to leave the budget to `stars` and `bh` (0.25 until
+# the first, 0.2 until the second); the neutrino
 # run to its first output, then resumes from it for one step (a
 # paramfile with a later second output, as a user extends a run)
-DMSMALL_TIMEMAX = 0.2
+DMSMALL_TIMEMAX = 0.15
 NU_RUNS = (("0.0102", 0.0102), ("0.0102,0.0104", 0.0104))
 # star-small (validation/star_small.py:36-77) from z = 9 to the first
 # output after stars have formed and metal return has acted, then a resume
@@ -143,8 +169,7 @@ NU_RUNS = (("0.0102", 0.0102), ("0.0102,0.0104", 0.0104))
 # validation/NOTES_star_small_r2.md), so the run ends at the output 0.118;
 # star-small's own criterion, a star before 0.115 (check_results.py), is
 # printed against the run's first star
-STARS_RUNS = (("0.105,0.11,0.115,0.118", 0.118),
-              ("0.105,0.11,0.115,0.118,0.119", 0.119))
+STARS_RUNS = (("0.105,0.11,0.115,0.118", 0.118),)
 STARS_FIRST_BY = 0.115
 # the CPU rehearsal's 16^3 resolves no gas dense enough for the SF
 # threshold, nor halos for FOF: it lowers the thresholds, and takes the
@@ -154,7 +179,29 @@ STARS_FIRST_BY = 0.115
 # paramfile stands
 STARS_REHEARSAL = ("CritPhysDensity = 1e-5\nCritOverDensity = 1.0\n"
                    "DensityKernelType = cubic\n")
-STARS_REHEARSAL_RUNS = (("0.102,0.104", 0.104), ("0.102,0.104,0.105", 0.105))
+STARS_REHEARSAL_RUNS = (("0.102,0.104", 0.104),)
+# the `bh` phase: star-small with BlackHoleOn 1 resumed from the `stars`
+# run's last output (0.118) to an output ~16 steps on, then resumed from
+# that output for one step.  A PM step ends at each output (its length is
+# clamped to the next sync point), so the output 0.1185, 8 steps on,
+# brings the first PM step's seeding FOF.  The one cut: the seeding
+# thresholds, lowered below the one FOF group that holds the run's stars
+# at 0.118 (mass 0.2135, stars 2.978e-4, in 1e10 Msun/h, on the card;
+# star-small's are 2 and 5e-4, and it seeds its first BHs at
+# a = 0.14-0.15, past this budget; PERF.md section 4)
+BH_RUNS = (("0.105,0.11,0.115,0.118,0.1185,0.1195", 0.1195),
+           ("0.105,0.11,0.115,0.118,0.1185,0.1195,0.12", 0.12))
+BH_SEEDING = "MinFoFMassForNewSeed = 0.15\nMinMStarForNewSeed = 2e-4\n"
+# the rehearsal's 16^3 forms no FOF group of 8 members or more: its `bh`
+# phase links groups of 4 and seeds in any group with a star
+BH_REHEARSAL_RUNS = (("0.102,0.104,0.106,0.108", 0.108),
+                     ("0.102,0.104,0.106,0.108,0.109", 0.109))
+BH_REHEARSAL_SEEDING = ("FOFHaloMinLength = 4\nMinFoFMassForNewSeed = 0.1\n"
+                        "MinMStarForNewSeed = 1e-5\n")
+# star-small's own criteria this depth cannot reach (check_results.py):
+# the first blackholes.txt line, and the PIG BH counts at 0.125/0.15/0.2
+BH_FIRST_LINE = (0.14, 0.15)
+BH_PIG_COUNTS = ((0.125, 0), (0.15, 3), (0.2, 4))
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12       # HBM3
 # the clock of that f32 rate: 132 SMs x 128 FMA lanes x 2 flops
@@ -504,6 +551,48 @@ def _class_tk_table(path, cp, time_ic):
     return table
 
 
+def _zreion_table(path, box_mpc, nside=8):
+    """A UV fluctuation bigfile (the Zreion_Table block and its
+    Nmesh/BoxSize/Redshift attributes, tests/test_uvfluc_helium.py:18-31):
+    z_reion = 6 in one octant of the box, 10 elsewhere."""
+    from shenqi_tpu_torch.io.bigfile import BigFile
+    tab = np.full((nside, nside, nside), 10.0)
+    tab[: nside // 2, : nside // 2, : nside // 2] = 6.0
+    bf = BigFile(str(path), create=True)
+    blk = bf.create_block("Zreion_Table", "<f8", nside ** 3, nmemb=1)
+    blk.write(0, tab.ravel())
+    blk.attrs["Nmesh"] = np.array([nside], dtype="u8")
+    blk.attrs["BoxSize"] = np.array([box_mpc], dtype="f8")
+    blk.attrs["Redshift"] = np.array([7.5], dtype="f8")
+    blk.flush()
+    return str(path)
+
+
+def _metal_cool_table(path):
+    """A MetalCool bigfile (tests/test_uvfluc_helium.py:61-78's blocks):
+    a made-up smooth NetCoolingRate (erg/s/g at solar Z) on an uneven
+    (z, log nH, log T) grid, changing at most half a dex per unit of
+    log nH or log T."""
+    from shenqi_tpu_torch.io.bigfile import BigFile
+    zb = np.array([0.0, 1.0, 2.5, 4.0, 6.0, 9.0, 12.0])
+    nb = np.array([-8.0, -7.0, -6.2, -5.0, -4.0, -3.0, -2.1, -1.0, 0.0, 1.0,
+                   2.0, 3.0])
+    tb = np.array([1.0, 2.5, 3.5, 4.0, 4.5, 5.0, 5.5, 6.5, 8.0, 9.5])
+    Z, N, T = np.meshgrid(zb, nb, tb, indexing="ij")
+    rate = (3e2 * 10 ** (0.5 * N) * (1 + 0.05 * Z)
+            * 10 ** (-0.3 * np.abs(T - 5.2)) * (1 + 0.2 * np.sin(T)))
+    bf = BigFile(str(path), create=True)
+    for name, data in [("MetallicityInSolar_bins", np.array([0.0])),
+                       ("Redshift_bins", zb),
+                       ("HydrogenNumberDensity_bins", nb),
+                       ("Temperature_bins", tb),
+                       ("NetCoolingRate", rate.ravel())]:
+        blk = bf.create_block(name, "<f8", len(data), nmemb=1)
+        blk.write(0, data)
+        blk.flush()
+    return str(path)
+
+
 def _bin_span(bins):
     """'35-38 (4)' for the occupied timebins of a step."""
     if not bins:
@@ -580,6 +669,8 @@ class Smoke:
         self.n_stars = 16 if rehearsal else 64
         self.budget = REHEARSAL_BUDGET_S if rehearsal else BUDGET_S
         self.stars_launches, self.stars_row = 0, {}
+        self.bh_launches, self.bh_row = 0, {}
+        self.stars_dir = None
         self.cli_row, self.dmsmall_row, self.nu_row = {}, {}, {}
         self.gas_row, self.gas128_row = {}, {}
         self.steps_log = None
@@ -1890,19 +1981,21 @@ class Smoke:
         """star-small (validation/star_small.py:36-77): genic_main with
         ProduceGas, then gadget_main RestartFlag 2 from z = 9 with
         CoolingOn, StarformationOn, WindOn (ofjt10), MetalReturnOn,
-        pressure-entropy SPH and FOF at each output, to STARS_RUNS[0]; a
-        RestartFlag 1 resume from the last output for one step; one source
-        step profiled.  Cuts: BlackHoleOn 0 (ROADMAP A.8's black holes;
-        the reference seeds its first at a = 0.14-0.15); the EH table,
-        normalized as `dmsmall`'s, for class_pk_9.dat; the run ends at
-        STARS_RUNS[0][1] instead of 0.2 (OutputList cut to match); no
-        TreeCoolFile, as in the example."""
+        pressure-entropy SPH and FOF at each output, to STARS_RUNS[0].
+        Cuts: BlackHoleOn 0 here (the `bh`
+        phase resumes from this run's last output with it on); the EH
+        table, normalized as `dmsmall`'s, for class_pk_9.dat; the run ends
+        at STARS_RUNS[0][1] instead of 0.2 (OutputList cut to match); no
+        TreeCoolFile, as in the example.  The output directory stays for
+        `bh`, whose resume checks the star rows restored exactly."""
         import tempfile
         tmp = tempfile.mkdtemp(prefix="shenqi_stars_")
         try:
             self._stars(tmp)
-        finally:
+        except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self.stars_dir = tmp
 
     def _stars(self, tmp):
         import os
@@ -2064,47 +2157,414 @@ class Smoke:
             self._star_fields_check(os.path.join(out, f"PART_{i:03d}"),
                                     os.path.join(out, f"PIG_{i:03d}"))
         self._check_calls("stars", rec)
-        self._stars_profile(sim, float(lines[-1][5]))
         del sim
+        shapes = dict(rec.shapes)
+        del rec
+        self.stars_row = self._check_shapes(shapes, "stars")
 
-        # RestartFlag 1 from the last output, one step on: the star rows
-        # restored exactly from the snapshot's star blocks
-        last = os.path.join(out, f"PART_{n_out - 1:03d}")
-        _, saved = read_snapshot(last)
-        got = {}
+    # ----------------------------------------------------------------- bh
+    def bh(self):
+        """star-small with BlackHoleOn 1 (every BH parameter at its
+        default: BH_DynFrictionMethod 1, BH_DRAG 1, WriteBlackHoleDetails
+        1) resumed with RestartFlag 1 from the `stars` run's last output
+        (a = 0.118, which holds stars) to BH_RUNS[0]'s output with FOF,
+        then a second RestartFlag 1 resume from that output for one step;
+        one `do_cooling` of the end state's gas timed with a metal
+        cooling table and a fluctuating-UVB table written here.  The one
+        cut: the seeding thresholds (BH_SEEDING).  The first resume does
+        the `stars` resume's checks (the star rows restored exactly)."""
+        if self.stars_dir is None:
+            raise SmokeFailure("bh needs the stars phase's output")
+        try:
+            self._bh(self.stars_dir)
+        finally:
+            shutil.rmtree(self.stars_dir, ignore_errors=True)
+            self.stars_dir = None
 
-        def spy(fn, sim_, *a, **kw):
+    def _bh_groups(self, pig):
+        """The FOF groups of a PIG that hold stars: (mass, stellar mass)
+        each, largest first."""
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        pg = BigFile(pig)
+        if "FOFGroups/Mass" not in pg:
+            return []
+        m = pg["FOFGroups/Mass"].read()
+        mbt = pg["FOFGroups/MassByType"].read()
+        return sorted(((float(a), float(b)) for a, b in zip(m, mbt[:, 4])
+                       if b > 0), reverse=True)
+
+    def _bh(self, tmp):
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main
+        from shenqi_tpu_torch import simulation_gas as sg
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.utils.stats import BH_DETAIL_DTYPE
+        GP = sg.GasPhysics
+        out = os.path.join(tmp, "output")
+        ic = os.path.join(tmp, "IC", "IC")
+        runs = BH_REHEARSAL_RUNS if self.rehearsal else BH_RUNS
+        seeding = (STARS_REHEARSAL + BH_REHEARSAL_SEEDING if self.rehearsal
+                   else BH_SEEDING)
+        with open(os.path.join(out, "LastSnapNum.txt")) as f:
+            start = int(f.read().strip())
+        groups0 = self._bh_groups(os.path.join(out, f"PIG_{start:03d}"))
+        say("bh", f"PIG_{start:03d}: {len(groups0)} groups hold stars, "
+            f"(mass, stellar mass) in 1e10 Msun/h: " + ", ".join(
+                f"({a:.4g}, {b:.4g})" for a, b in groups0[:12])
+            + f"; the seeding thresholds {seeding.strip()!r} "
+            f"(star-small's: 2 and 5e-4)")
+        pps = []
+        for i, (outputs, amax) in enumerate(runs):
+            pps.append(os.path.join(tmp, f"bh{i}.gadget"))
+            with open(pps[-1], "w") as f:
+                f.write(_GADGET_STARS.format(ic=ic, out=out, outputs=outputs,
+                                             a=amax)
+                        .replace("BlackHoleOn = 0", "BlackHoleOn = 1")
+                        + seeding)
+        _, saved0 = read_snapshot(os.path.join(out, f"PART_{start:03d}"))
+        m_start = sum(float(np.sum(b["Mass"], dtype=np.float64))
+                      for b in saved0.values())
+        n_cpu0 = len(_cpu_steps(os.path.join(out, "cpu.txt")))
+        dev = "cpu" if self.rehearsal else None
+        seeds, bhsteps, feedback, fofs, got0 = [], [], [], [], {}
+        live = {"t": time.perf_counter(), "sim": None}
+
+        def on_seed(fn, gp, sim_, gas, rows):
+            out_ = fn(gp, sim_, gas, rows)
+            r = torch.as_tensor(np.asarray(rows, np.int64), device=sim_.device)
+            seeds.append((sim_.step_count, sim_.atime(),
+                          np.asarray(rows, np.int64),
+                          sim_.particles.ids64()[np.asarray(rows)],
+                          out_.bh_mass[r].cpu().numpy(),
+                          sim_.particles.ptype[r].cpu().numpy()))
+            return out_
+
+        def on_bh_step(fn, gp, sim_, *a, **kw):
+            t = time.perf_counter()
+            out_ = fn(gp, sim_, *a, **kw)
+            bhsteps.append((sim_.step_count, dict(gp.last_bh_stats),
+                            time.perf_counter() - t))
+            return out_
+
+        def on_feedback(fn, *a, **kw):
+            dent = fn(*a, **kw)
+            feedback.append(torch.stack([dent.min(), (dent > 0).sum().to(
+                dent.dtype), torch.isfinite(dent).all().to(dent.dtype)]))
+            return dent
+
+        def on_fof(fn, *a, **kw):
+            # a seeding search runs from the PM-step hook, the others at
+            # an output
+            f, kind = sys._getframe(1), "at an output"
+            while f is not None:
+                if f.f_code.co_name == "on_pm_step":
+                    kind = "the seeding search of a PM step"
+                    break
+                f = f.f_back
+            t = time.perf_counter()
+            g_ = fn(*a, **kw)
+            sim_ = live["sim"]
+            fofs.append((sim_.step_count, sim_.atime(), g_.ngroups,
+                         time.perf_counter() - t, kind))
+            return g_
+
+        def on_restore(fn, sim_, *a, **kw):
             fn(sim_, *a, **kw)
             g = sim_.gas
             rows = torch.nonzero(sim_.particles.ptype == 4).squeeze(1)
-            got.update({k: getattr(g, k)[rows].cpu().numpy() for k in (
+            got0.update({k: getattr(g, k)[rows].cpu().numpy() for k in (
                 "birth_a", "star_metallicity", "total_returned",
                 "last_enrich_myr")})
-        with _Wrap(gadget_main, "_restore_gas_state", through=spy), \
-                _RunRecorder(self._sync) as rec2:
-            sim = gadget_main.run_gadget(pps[1], 1, max_steps=2, device=dev)
+
+        def catch(fn, sim_, *a, **kw):
+            live["sim"] = sim_
+            return fn(sim_, *a, **kw)
+
+        def step_line(fn, wt, fd, a):
+            sim_ = live["sim"]
+            now = time.perf_counter()
+            st_ = bhsteps[-1][1] if bhsteps else {}
+            say("bh", f"  live: step {sim_.step_count if sim_ else '-'} to "
+                f"a={a:.5f} in {now - live['t']:.2f} s, {st_.get('nbh', 0)} "
+                f"BHs; " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     sorted(wt.step_acc.items())))
+            live["t"] = now
+            check_budget("bh run", self.budget)
+            return fn(wt, fd, a)
+
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        with _Wrap(GP, "seed_bh", through=on_seed), \
+                _Wrap(GP, "blackhole_step", through=on_bh_step), \
+                _Wrap(sg, "bh_thermal_feedback", through=on_feedback), \
+                _Wrap(gadget_main, "fof", through=on_fof), \
+                _Wrap(gadget_main, "_restore_gas_state", through=on_restore), \
+                _Wrap(gadget_main._DeviceWalltime, "write_cpu_log",
+                      through=step_line), \
+                _Wrap(gadget_main.Simulation, "run", through=catch), \
+                _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            sim = gadget_main.run_gadget(pps[0], 1, device=dev)
+        t_run = time.perf_counter() - t
+        self.bh_launches = p2p_blocked.launches
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        # the start restored the star rows exactly (the stars phase's own
+        # resume check)
         for name, key in (("StellarFormationTime", "birth_a"),
                           ("Metallicity", "star_metallicity"),
                           ("TotalMassReturned", "total_returned"),
                           ("LastEnrichmentMyr", "last_enrich_myr")):
-            if not np.array_equal(got.get(key), saved[4][name]):
-                raise SmokeFailure(f"the resume did not restore {name}")
-        say("stars", f"RestartFlag 1 from PART_{n_out - 1:03d} to "
-            f"a={sim.atime():.6f}: the star rows' StellarFormationTime, "
+            if not np.array_equal(got0.get(key), saved0[4][name]):
+                raise SmokeFailure(f"the resume did not restore the stars' "
+                                   f"{name}")
+        say("bh", f"RestartFlag 1 from PART_{start:03d} (a = "
+            f"{STARS_RUNS[0][1] if not self.rehearsal else 'rehearsal'}): "
+            f"the {len(saved0[4]['ID'])} star rows' StellarFormationTime, "
             f"Metallicity, TotalMassReturned and LastEnrichmentMyr restored "
-            f"exactly ({len(saved[4]['ID'])} stars), "
-            f"{int((sim.particles.ptype == 4).sum())} star rows after the "
-            f"step")
+            f"exactly")
+        steps = self._run_steps(out, sim)[n_cpu0:]
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        say("bh", f"gadget_main RestartFlag 1 with BlackHoleOn to a="
+            f"{sim.atime():.5f}: {t_run:.2f} s, {len(steps) - 1} steps, "
+            f"{len(rec.calls)} force calls; stage totals " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.bh_launches} in "
+            f"{len(rec.shapes)} shapes; peak device memory {mem:.2f} GiB")
+        syncs = np.diff([0] + rec.syncs) if rec.syncs else []
+        per = {}
+        for step, st_, sec in bhsteps:
+            per.setdefault(step, []).append((st_, sec))
+        seeded_at = {s_[0]: len(s_[2]) for s_ in seeds}
+        fb = [v.tolist() for v in feedback]
+        for i, (a, stages) in enumerate(steps):
+            k = i + sim.step_count - (len(steps) - 1)
+            b = per.get(k, [])
+            say("bh", f"  {'step ' + str(k) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: BH stage {stages.get('BH', 0.0):.3f} s, "
+                f"BHs {b[-1][0]['nbh'] if b else 0}, seeded "
+                f"{seeded_at.get(k, 0)}, swallowed "
+                f"{sum(x[0]['swallowed'] for x in b)}, mergers "
+                f"{sum(x[0]['mergers'] for x in b)}; host syncs "
+                + (f"{syncs[i]}" if i < len(syncs) else "-")
+                + "; stages " + ", ".join(
+                    f"{n} {v:.3f} s" for n, v in sorted(stages.items())
+                    if n != "BH"))
+        bh_s = [x[2] for x in bhsteps]
+        say("bh", f"BH stage: {len(bhsteps)} calls, "
+            f"{sum(1 for x in bhsteps if x[1]['nbh'])} with BHs, "
+            f"{np.sum(bh_s):.3f} s in all (max "
+            f"{np.max(bh_s) if bh_s else 0:.3f} s); swallowed rows "
+            f"{sum(x[1]['swallowed'] for x in bhsteps)}, mergers "
+            f"{sum(x[1]['mergers'] for x in bhsteps)}")
+        for step, a, ng_, sec, kind in fofs:
+            say("bh", f"  FOF at step {step}, a={a:.5f} ({kind}): {ng_} "
+                f"groups in {sec:.3f} s")
+        if len(syncs):
+            say("bh", f"host syncs per step (torch's sync debug mode): "
+                f"mean {np.mean(syncs):.1f}, max {np.max(syncs)}")
+
+        # the checks
+        if not seeds:
+            raise SmokeFailure("no BH was seeded in the bh run")
+        seed_mass = np.float32(2e-5)
+        for step, a, rows, ids, bhm, pt in seeds:
+            say("bh", f"seeded {len(rows)} BHs at step {step}, a={a:.5f}: "
+                f"rows {rows.tolist()}, IDs {ids.tolist()}, subgrid masses "
+                f"{bhm.tolist()}")
+            if not ((bhm == seed_mass).all() and (pt == 5).all()):
+                raise SmokeFailure("a seeded row is not a BH at the seed "
+                                   "mass")
+        seed_a = seeds[0][1]
+        # a BH seeded at the run's last step has no record: the loop ends
+        # before that step's statistics
+        seed_ids = np.concatenate([s_[3] for s_ in seeds
+                                   if s_[1] < runs[0][1] - 1e-9])
+        lines = [ln.split() for ln in open(os.path.join(out,
+                                                        "blackholes.txt"))]
+        say("bh", f"blackholes.txt: {len(lines)} lines, the first "
+            + " ".join(lines[0] if lines else ["-"]) + ", the last "
+            + " ".join(lines[-1] if lines else ["-"]))
+        if not lines or any(len(ln) != 6 for ln in lines):
+            raise SmokeFailure("blackholes.txt has no line in the 6-column "
+                               "format")
+        if abs(float(lines[0][0]) - seed_a) > 1e-5 * seed_a \
+                or int(lines[0][1]) != len(seeds[0][2]) \
+                or not float(lines[0][2]) >= len(seeds[0][2]) * seed_mass:
+            raise SmokeFailure("blackholes.txt does not begin at the "
+                               "seeding step with its BHs and mass")
+        det = np.fromfile(os.path.join(out, "BlackholeDetails.bin"),
+                          dtype=BH_DETAIL_DTYPE)
+        say("bh", f"BlackholeDetails.bin: {len(det)} records of "
+            f"{BH_DETAIL_DTYPE.itemsize} bytes, IDs "
+            f"{sorted(set(det['ID'].tolist()))}, masses "
+            f"{det['Mass'].min():.6g}-{det['Mass'].max():.6g}, mdot "
+            f"{det['Mdot'].min():.4g}-{det['Mdot'].max():.4g}")
+        if os.path.getsize(os.path.join(out, "BlackholeDetails.bin")) \
+                != len(det) * 52 or set(det["ID"].tolist()) \
+                != set(seed_ids.tolist()):
+            raise SmokeFailure("BlackholeDetails.bin's records are not the "
+                               "seeded BHs' in the JAX layout")
+        if not (np.isfinite(det["Mdot"]).all() and (det["Mdot"] > 0).all()
+                and det["Mass"].max() > seed_mass):
+            raise SmokeFailure("the BHs did not accrete (mdot > 0, mass "
+                               "above the seed)")
+        fmin = min((x[0] for x in fb), default=0.0)
+        nheat = sum(int(x[1]) for x in fb)
+        say("bh", f"feedback: {len(fb)} passes, {nheat} gas rows heated in "
+            f"all, the smallest entropy change {fmin:.4g}")
+        if not (fb and nheat > 0 and fmin >= 0 and all(x[2] for x in fb)):
+            raise SmokeFailure("the BH feedback did not raise the gas "
+                               "entropy, or lowered it")
+        p = sim.particles
+        m_end = float(p.mass.double()[p.mask].sum())
+        dm_rel = abs(m_end - m_start) / m_start
+        say("bh", f"total mass {m_end:.9g} against PART_{start:03d}'s "
+            f"{m_start:.9g}: relative change {dm_rel:.3e} (limit 1e-6)")
+        if not dm_rel < 1e-6:
+            raise SmokeFailure(f"total mass changed by {dm_rel:.3e}")
+        if abs(sim.atime() - runs[0][1]) > 1e-6:
+            raise SmokeFailure(f"the bh run ended at a={sim.atime()}")
+        n_out = len(runs[0][0].split(","))
+        snap = os.path.join(out, f"PART_{n_out - 1:03d}")
+        pig = os.path.join(out, f"PIG_{n_out - 1:03d}")
+        self._star_fields_check(snap, pig, "bh")
+        bf, pg = BigFile(snap), BigFile(pig)
+        bh_ids = bf["5/ID"].read() if "5/ID" in bf else np.zeros(0)
+        for name in ("Position", "Velocity", "Mass", "BlackholeMass",
+                     "BlackholeAccretionRate"):
+            if bh_ids.size and not np.isfinite(bf[f"5/{name}"].read()).all():
+                raise SmokeFailure(f"{snap}: BH {name} not finite")
+        in_pig = pg["5/ID"].read() if "5/ID" in pg else np.zeros(0)
+        lbt = (pg["FOFGroups/LengthByType"].read()
+               if "FOFGroups/LengthByType" in pg else np.zeros((0, 6)))
+        n_bh = int((p.mask & (p.ptype == 5)).sum())
+        # the snapshot holds the run's BHs at the output; the FOF after it
+        # may seed more (fof_physics), which the run then holds
+        say("bh", f"{snap.rsplit('/', 1)[-1]}: {bh_ids.size} BHs, "
+            f"{in_pig.size} in PIG groups, LengthByType[:, 5] sums to "
+            f"{int(lbt[:, 5].sum()) if len(lbt) else 0}; {n_bh} BH rows "
+            f"in the run after the output's FOF")
+        if not (bh_ids.size and np.isin(bh_ids, in_pig).all()
+                and int(lbt[:, 5].sum()) == bh_ids.size
+                and n_bh >= bh_ids.size):
+            raise SmokeFailure(f"{pig}: a BH outside every FOF group, or the "
+                               f"PIG's BH count is not the run's")
+        first_a = float(lines[0][0])
+        say("bh", f"star-small's criteria this depth cannot reach "
+            f"(printed): the first blackholes.txt line at a={first_a:.5f} "
+            f"(check_results wants {BH_FIRST_LINE[0]} < a < "
+            f"{BH_FIRST_LINE[1]}: "
+            + ("met" if BH_FIRST_LINE[0] < first_a < BH_FIRST_LINE[1]
+               else "not met, the seeding thresholds cut") + "); "
+            + ", ".join(f"{n} BHs wanted at a = {a}" for a, n in
+                        BH_PIG_COUNTS)
+            + f", {bh_ids.size} in this run's PIG at a = {runs[0][1]}")
+        self._check_calls("bh", rec)
+        self._bh_cooling(sim, tmp)
+        del sim
+
+        # RestartFlag 1 from the bh output, one step on: the BH rows
+        # restored exactly from the snapshot's BH blocks
+        _, saved = read_snapshot(snap)
+        got = {}
+
+        def spy(fn, sim_, *a, **kw):
+            fn(sim_, *a, **kw)
+            rows = torch.nonzero(sim_.particles.ptype == 5).squeeze(1)
+            got.update(rows=rows.cpu().numpy(),
+                       ids=sim_.particles.ids64()[rows.cpu().numpy()],
+                       bh_mass=sim_.gas.bh_mass[rows].cpu().numpy(),
+                       bh_mdot=sim_.gas.bh_mdot[rows].cpu().numpy())
+        with _Wrap(gadget_main, "_restore_gas_state", through=spy), \
+                _RunRecorder(self._sync) as rec2:
+            sim = gadget_main.run_gadget(pps[1], 1, max_steps=2, device=dev)
+        if not (np.array_equal(got.get("ids"), saved[5]["ID"])
+                and np.array_equal(got.get("bh_mass"),
+                                   saved[5]["BlackholeMass"])
+                and np.array_equal(got.get("bh_mdot"),
+                                   saved[5]["BlackholeAccretionRate"])):
+            raise SmokeFailure("the resume did not restore the BH rows "
+                               "exactly")
+        say("bh", f"RestartFlag 1 from PART_{n_out - 1:03d} to "
+            f"a={sim.atime():.6f}: the {len(saved[5]['ID'])} BH rows' "
+            f"ptype, BlackholeMass and BlackholeAccretionRate restored "
+            f"exactly, {int((sim.particles.ptype == 5).sum())} BH rows "
+            f"after the step")
         if not sim.atime() > runs[0][1]:
-            raise SmokeFailure("the star-small resume did not step on")
-        del sim, saved
+            raise SmokeFailure("the bh resume did not step on")
+        del sim, saved, saved0
         shapes = dict(rec.shapes)
         for k_, v in rec2.shapes.items():
             shapes.setdefault(k_, [0] + v[1:])[0] += v[0]
         del rec, rec2
-        self.stars_row = self._check_shapes(shapes, "stars")
+        self.bh_row = self._check_shapes(shapes, "bh")
 
-    def _star_fields_check(self, snap, pig):
+    def _bh_cooling(self, sim, tmp):
+        """One `do_cooling` of the end state's alive gas (every row active
+        for the star-small run's last mean dtime), replayed from the rate
+        graphs: without tables, with a metal cooling table, and with that
+        and a fluctuating-UVB table gating a UV background (the tables
+        written in `tmp` as tests/test_uvfluc_helium.py writes them; each
+        solve timed after a first call that captures its graphs)."""
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.physics import cooling_rates as cr
+        from shenqi_tpu_torch.physics.uv_fluctuations import (
+            ZreionTable, MetalCoolingTable, local_uvbg)
+        from shenqi_tpu_torch.physics.sfr import entropy_to_u
+        from shenqi_tpu_torch.core.particles import ipos_to_float
+        from shenqi_tpu_torch.utils.constants import HYDROGEN_MASSFRAC
+        gp, g, p = sim.gas_physics, sim.gas, sim.particles
+        ng = g.ngas
+        rows = torch.nonzero((p.ptype[:ng] == 0) & p.mask[:ng]).squeeze(1)
+        cu = gp.coolunits
+        a3inv = 1.0 / sim.atime() ** 3
+        z = 1.0 / sim.atime() - 1.0
+        dfac = entropy_to_u(torch.clamp(g.egy_wt_density[rows], min=1e-35),
+                            a3inv)
+        u = g.entropy[rows] * dfac * cu.uu_in_cgs
+        rho = g.density[rows] * a3inv * cu.density_in_phys_cgs
+        dt = torch.full_like(u, 3e-4 * cu.tt_in_s)
+        zt = ZreionTable.load(_zreion_table(os.path.join(tmp, "UVF"), 5.0),
+                              sim.boxsize, 3.085678e21)
+        mc = MetalCoolingTable.load(_metal_cool_table(os.path.join(tmp,
+                                                                   "MC")))
+        uv0 = cr.UVBG(gJH0=1e-13, gJHe0=8e-14, gJHep=5e-16, epsH0=6e-25,
+                      epsHe0=7e-25, epsHep=1e-26, self_shield_dens=3e-3)
+        uvr = local_uvbg(uv0, zt.zreion(ipos_to_float(p.ipos[rows],
+                                                      sim.boxsize)), z)
+        met = g.metallicity[rows]
+        res = {}
+        for name, uv, kw in (("table-free", cr.UVBG(), {}),
+                             ("metal", cr.UVBG(),
+                              dict(metallicity=met, metal_cool=mc)),
+                             ("metal + zreion", uvr,
+                              dict(metallicity=met, metal_cool=mc))):
+            ms = []
+            for _ in range(2):
+                self._sync()
+                t = time.perf_counter()
+                uo, ne = cr.do_cooling(u, rho, dt, 1 - HYDROGEN_MASSFRAC, z,
+                                       uv, gp.coolpar, ne_init=g.ne[rows],
+                                       **kw)
+                self._sync()
+                ms.append((time.perf_counter() - t) * 1e3)
+            if not bool(torch.isfinite(uo).all()):
+                raise SmokeFailure(f"do_cooling ({name}) gave a non-finite u")
+            res[name] = (ms, float((uo / u).median()))
+        say("bh", f"one do_cooling of the end state's {rows.numel()} gas "
+            f"rows at z = {z:.3f}, dtime 3e-4: " + "; ".join(
+                f"{k} {v[0][1]:.1f} ms (first call {v[0][0]:.1f} ms, "
+                f"median u ratio {v[1]:.4g})" for k, v in res.items())
+            + (" (CPU)" if self.rehearsal else " (from the replayed graphs)"))
+
+    def _star_fields_check(self, snap, pig, phase="stars"):
         """The gas and star blocks of a PART finite, the gas density,
         weighted density, smoothing length and internal energy (so the
         entropy) positive, the gas metallicity positive somewhere, and
@@ -2134,7 +2594,7 @@ class Smoke:
                      else np.zeros(0, np.uint64))
         lbt = pg["FOFGroups/LengthByType"].read() \
             if "FOFGroups/LengthByType" in pg else np.zeros((0, 6))
-        say("stars", f"  {snap.rsplit('/', 1)[-1]}: gas fields finite, "
+        say(phase, f"  {snap.rsplit('/', 1)[-1]}: gas fields finite, "
             f"positive; max gas metallicity {zmax:.4g}; {ids.size} stars, "
             f"{in_groups.size} of them in PIG groups (LengthByType "
             f"{int(lbt[:, 4].sum()) if len(lbt) else 0})")
@@ -2143,69 +2603,6 @@ class Smoke:
         if ids.size and not zmax > 0:
             raise SmokeFailure(f"{snap}: no gas metallicity after the "
                                f"stars formed")
-
-    def _stars_profile(self, sim, dt):
-        """One source step of the end state as a PM step's
-        proto_sources runs it (update_vdisp, cooling and star formation,
-        the conversion, winds, metal return) with every gas row active
-        for `dt`, the run's last mean active dtime (sfr.txt): host clock
-        with a synchronize around each piece, then torch.profiler's
-        device time and kernel count."""
-        if self.rehearsal:
-            say("stars", "source-step profile skipped in the CPU rehearsal")
-            return
-        torch = self.torch
-        from torch.profiler import profile, ProfilerActivity
-        from shenqi_tpu_torch import simulation_gas as sg
-        from shenqi_tpu_torch.physics import sfr
-        GP = sg.GasPhysics
-        pieces = [(GP, "update_vdisp"), (GP, "source_terms"),
-                  (sg, "starformation_step"), (sfr, "do_cooling"),
-                  (sfr, "_cooling_time_on"), (GP, "_convert_stars_device"),
-                  (GP, "_convert_stars"), (sg, "winds_star_feedback"),
-                  (GP, "metal_return")]
-        gp = sim.gas_physics
-        dtime = torch.full((sim.gas.ngas,), dt, dtype=torch.float32,
-                           device=self.dev)
-
-        def step():
-            self._sync()
-            t = time.perf_counter()
-            sim.gas = gp.update_vdisp(sim, sim.gas)
-            sim.gas, _ = gp.source_terms(sim, sim.gas, dtime)
-            sim.gas = gp.metal_return(sim, sim.gas)
-            self._sync()
-            return (time.perf_counter() - t) * 1e3
-
-        wraps = [_Wrap(m, n, sync=self._sync) for m, n in pieces]
-        for w in wraps:
-            w.__enter__()
-        try:
-            wall = step()
-        finally:
-            for w in reversed(wraps):
-                w.__exit__(None, None, None)
-        ng = sim.gas.ngas
-        say("stars", f"one source step ({ng} gas rows, all active for "
-            f"dtime {dt:g}): "
-            f"{wall:.1f} ms = " + ", ".join(
-                f"{n} {w.seconds * 1e3:.1f} ms in {len(w.each)} calls"
-                for (_, n), w in zip(pieces, wraps))
-            + " (source_terms holds starformation_step, the conversions"
-            " and the winds; starformation_step holds do_cooling and the "
-            "eEOS cooling times, _cooling_time_on)")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall_p = step()
-        rows = _device_rows(prof)
-        busy = sum(r[0] for r in rows)
-        kernels = sum(r[1] for r in rows)
-        say("stars", f"the source step under torch.profiler "
-            f"({wall_p:.1f} ms with the profiler): device busy "
-            f"{busy:.1f} ms, {100 * busy / wall:.1f}% of the step's "
-            f"{wall:.1f} ms in the split above, in {kernels} device "
-            f"events")
-        for ms_, cnt, key in sorted(rows, reverse=True)[:6]:
-            say("stars", f"  {ms_:9.3f} ms {cnt:7d}x {key[:90]}")
 
     def profile(self):
         """Where the time goes in one full force pass at the slice's size
@@ -2296,7 +2693,8 @@ class Smoke:
                 ("nu", self.nu_row, self.nu_launches),
                 ("gas", self.gas_row, self.gas_launches),
                 ("gas128", self.gas128_row, self.gas128_launches),
-                ("stars", self.stars_row, self.stars_launches))]),
+                ("stars", self.stars_row, self.stars_launches),
+                ("bh", self.bh_row, self.bh_launches))]),
               flush=True)
         print(json.dumps({"kernels": [entry(self.cli_row,
                                             self.cli_launches)]}),
@@ -2806,7 +3204,7 @@ def main(argv) -> int:
     smoke.budget = budget
     try:
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "dmsmall", "nu", "gas", "gas128", "stars",
+                      "dmsmall", "nu", "gas", "gas128", "stars", "bh",
                       "profile"):
             getattr(smoke, phase)()
             if not rehearsal:

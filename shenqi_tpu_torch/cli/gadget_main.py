@@ -15,13 +15,14 @@ hierarchical gravity (SplitGravityTimestepsOn, on by default) or the
 plain individual timesteps, the massive-neutrino linear response
 (MassiveNuLinRespOn) and gas (gas particles with HydroOn:
 pressure-entropy or density-entropy SPH; CoolingOn, StarformationOn,
-WindOn and MetalReturnOn with an optional TreeCoolFile; snapshots with
-the gas and star blocks, sfr.txt, resumes that restore the gas and star
-state).  What the port does not have yet is refused with the ROADMAP
-item that brings it: black holes, helium and excursion-set
-reionization, metal-line cooling tables and the fluctuating UVB (A.8),
---mesh, lightcones, lensing planes, RestartFlag 99 and the erfc
-short-range window.
+WindOn and MetalReturnOn with an optional TreeCoolFile, MetalCoolFile
+with MetalCoolingOn and UVFluctuationFile; BlackHoleOn with its
+seeding FOF on PM steps, blackholes.txt and BlackholeDetails.bin;
+snapshots with the gas, star and BH blocks, sfr.txt, resumes that
+restore the gas, star and BH state).  What the port does not have yet is
+refused with the ROADMAP item that brings it: helium and excursion-set
+reionization (A.8), --mesh, lightcones, lensing planes, RestartFlag 99
+and the erfc short-range window.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ..utils.constants import (CM_PER_MPC, BOLTZMANN, PROTONMASS,
                                GAMMA_MINUS1, HYDROGEN_MASSFRAC)
 from ..utils.hci import HCI
 from ..utils.walltime import Walltime
-from ..utils.stats import energy_statistics_fast, sfr_statistics
+from ..utils.stats import (energy_statistics_fast, sfr_statistics,
+                           bh_statistics_fast)
 from ..cosmology.background import Cosmology
 from ..core.timeline import Timeline
 from ..core.integrate import TimestepParams
@@ -53,9 +55,11 @@ from ..io.fofio import save_fof, save_fof_particles
 from ..simulation import Simulation
 from ..simulation_gas import GasPhysics
 from ..sph.kernels import KERNELS
+from ..physics.blackhole import BHParams, seed_black_holes
 from ..physics.cooling_rates import CoolingParams, TreeCool, UVBG
 from ..physics.metal_return import MetalReturn
 from ..physics.sfr import SFRParams, CoolingUnits
+from ..physics.uv_fluctuations import ZreionTable, MetalCoolingTable
 from ..physics.winds import WindParams
 from ..physics.neutrinos_lra import DeltaTotTable
 from ..fof.fof import fof
@@ -85,8 +89,7 @@ def load_cosmology(ps, hdr: SnapshotHeader, time_begin, units):
 
 # the subgrid master switches of gas runs still to be ported (ROADMAP
 # A.8's rest)
-_SUBGRID = ("BlackHoleOn", "QSOLightupOn", "HeliumReionizationOn",
-            "ExcursionSetReionOn")
+_SUBGRID = ("QSOLightupOn", "HeliumReionizationOn", "ExcursionSetReionOn")
 # the data_yields/ beside the package: the metal return's default tables
 _YIELDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data_yields")
@@ -191,12 +194,6 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
         refuse += [
             (has_gas and on, f"subgrid gas physics ({', '.join(on)})",
              "A.8"),
-            (has_gas and ps.get_string("MetalCoolFile")
-             and ps.get_int("MetalCoolingOn"),
-             "MetalCoolFile with MetalCoolingOn (metal-line cooling)",
-             "A.8"),
-            (has_gas and ps.get_string("UVFluctuationFile"),
-             "UVFluctuationFile (the fluctuating UVB)", "A.8"),
             (ps.get_int("LightconeOn"), "LightconeOn", "A.8"),
             (ps.get_int("WritePlaneOn"), "WritePlaneOn (lensing planes)",
              "A.8"),
@@ -293,9 +290,9 @@ def _restore_gas_state(sim, blocks, ptype, atime, cp, min_egyspec=0.0):
     sim._gas_entropy_is_u = False
 
 
-def _gas_physics(ps, cp, units, atime, gas_mass):
+def _gas_physics(ps, cp, units, atime, gas_mass, boxsize):
     """(GasPhysics, u0): the SPH and subgrid configuration of the
-    paramfile (gadget_main.py:909-975 of the JAX package) and the initial
+    paramfile (gadget_main.py:909-1080 of the JAX package) and the initial
     specific internal energy from InitGasTemp (CMB-derived when negative,
     as the reference's init.cpp).  gas_mass: the gas particles' masses,
     whose median is the star formation's average baryon mass."""
@@ -348,6 +345,34 @@ def _gas_physics(ps, cp, units, atime, gas_mass):
     if ps.get_int("MetalReturnOn"):
         metals = MetalReturn.load(ps.get_string("MetalYieldDir") or _YIELDS,
                                   sn1a_n0=ps.get_double("MetalsSn1aN0"))
+    # the fluctuating UVB and metal-line cooling tables
+    # (cooling_uvfluc.cpp; gadget_main.py:980-991)
+    uvf = ps.get_string("UVFluctuationFile")
+    zreion_table = (ZreionTable.load(uvf, boxsize, units.UnitLength_in_cm)
+                    if uvf else None)
+    mcf = ps.get_string("MetalCoolFile")
+    metal_cool = (MetalCoolingTable.load(mcf)
+                  if mcf and ps.get_int("MetalCoolingOn") else None)
+    # black holes (blackhole.cpp; gadget_main.py:1036-1060)
+    bh_on = bool(ps.get_int("BlackHoleOn"))
+    bhpar = None
+    if bh_on:
+        bhpar = BHParams(
+            BlackHoleAccretionFactor=ps.get_double(
+                "BlackHoleAccretionFactor"),
+            BlackHoleEddingtonFactor=ps.get_double(
+                "BlackHoleEddingtonFactor"),
+            BlackHoleFeedbackFactor=ps.get_double("BlackHoleFeedbackFactor"),
+            SeedBlackHoleMass=ps.get_double("SeedBlackHoleMass"),
+            SeedBHDynMass=ps.get_double("SeedBHDynMass"),
+            MinFoFMassForNewSeed=ps.get_double("MinFoFMassForNewSeed"),
+            MinMStarForNewSeed=ps.get_double("MinMStarForNewSeed"),
+            BlackHoleNgbFactor=ps.get_double("BlackHoleNgbFactor"),
+            BlackHoleMaxAccretionRadius=ps.get_double(
+                "BlackHoleMaxAccretionRadius"),
+            UnitTime_in_s=units.UnitTime_in_s,
+            UnitVelocity_in_cm_per_s=units.UnitVelocity_in_cm_per_s,
+            HubbleParam=cp.HubbleParam, BH_DRAG=ps.get_int("BH_DRAG"))
     gp = GasPhysics(
         density_independent_sph=bool(ps.get_int("DensityIndependentSphOn")),
         eta=ps.get_double("DensityResolutionEta"),
@@ -359,7 +384,9 @@ def _gas_physics(ps, cp, units, atime, gas_mass):
         coolpar=coolpar, treecool=treecool, sfrpar=sfrpar,
         windpar=windpar,
         coolunits=CoolingUnits.create(units, cp.HubbleParam),
-        metals=metals)
+        metals=metals, bh_on=bh_on, bhpar=bhpar,
+        bh_dynfric_on=bh_on and ps.get_int("BH_DynFrictionMethod") > 0,
+        zreion_table=zreion_table, metal_cool=metal_cool)
     init_temp = ps.get_double("InitGasTemp")
     if init_temp < 0:
         init_temp = cp.CMBTemperature / atime
@@ -591,7 +618,8 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         # the types stay apart, gas rows first (Simulation.from_species),
         # with spare rows for split-spawned stars (the PartAllocFactor
         # analog of gadget_main.py:1099-1101; grown on demand)
-        gp, u0 = _gas_physics(ps, cp, units, atime, mass[ptype == 0])
+        gp, u0 = _gas_physics(ps, cp, units, atime, mass[ptype == 0],
+                              boxsize)
         species = [(int(ty), pos[ptype == ty], vel[ptype == ty],
                     mass[ptype == ty], ids[ptype == ty])
                    for ty in sorted(set(ptype.tolist()))]
@@ -677,11 +705,9 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
 
     snapshot_with_fof = bool(ps.get_int("SnapshotWithFOF"))
 
-    def on_snapshot_with_fof(s, a):
-        on_snapshot(s, a)
-        if not snapshot_with_fof:
-            return
-        wt.measure("Snapshot")
+    def run_fof(s):
+        """The FOF catalogue of the current state (gadget_main.py:1253-1268
+        of the JAX package)."""
         p = s.particles
         mask = p.mask.cpu().numpy()
         npart_tot = int(mask.sum())
@@ -691,10 +717,50 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         if s.gas is not None:
             # the gas rows' star formation rates give the groups'
             sfr = torch.nn.functional.pad(s.gas.sfr, (0, p.n - s.gas.ngas))
-        groups = fof(s.output_ipos(), p.vel, p.mass, p.ptype, p.mask,
-                     boxsize, mean_sep,
-                     linking_length=ps.get_double("FOFHaloLinkingLength"),
-                     min_length=ps.get_int("FOFHaloMinLength"), sfr=sfr)
+        return fof(s.output_ipos(), p.vel, p.mass, p.ptype, p.mask,
+                   boxsize, mean_sep,
+                   linking_length=ps.get_double("FOFHaloLinkingLength"),
+                   min_length=ps.get_int("FOFHaloMinLength"), sfr=sfr)
+
+    def fof_physics(s, groups):
+        """FOF-cadence physics (gadget_main.py:1320-1354 of the JAX
+        package): every row's halo mass, and the BH seeds: in each group
+        above the seeding thresholds without a BH, the densest alive gas
+        row (the first of equals, numpy's argmax) becomes a BH."""
+        gpx = s.gas_physics
+        if s.gas is None or gpx is None:
+            return
+        p = s.particles
+        gid = groups.group_id
+        halo_mass = np.zeros(p.n, np.float32)
+        ing = gid > 0
+        if groups.ngroups:
+            halo_mass[ing] = groups.masses[gid[ing] - 1]
+        s.halo_mass = torch.from_numpy(halo_mass).to(dev)
+        if not (gpx.bh_on and gpx.bhpar is not None and groups.ngroups):
+            return
+        to_seed = seed_black_holes(groups, groups.mass_by_type[:, 4],
+                                   groups.length_by_type[:, 5], gpx.bhpar)
+        ngc = s.gas.ngas
+        dens = s.gas.density.cpu().numpy()
+        is_gas = (p.ptype[:ngc] == 0).cpu().numpy() \
+            & p.mask[:ngc].cpu().numpy()
+        rows = []
+        for gi in to_seed:
+            cand = np.nonzero((gid[:ngc] == gi + 1) & is_gas)[0]
+            if cand.size:
+                rows.append(int(cand[np.argmax(dens[cand])]))
+        if rows:
+            s.gas = gpx.seed_bh(s, s.gas, rows)
+            print(f"Seeded {len(rows)} black holes")
+
+    def on_snapshot_with_fof(s, a):
+        on_snapshot(s, a)
+        if not snapshot_with_fof:
+            return
+        wt.measure("Snapshot")
+        p = s.particles
+        groups = run_fof(s)
         pig = os.path.join(outdir, f"{ps.get_string('FOFFileBase')}"
                            f"_{snap_counter[0] - 1:03d}")
         save_fof(pig, groups, hdr, a)
@@ -704,9 +770,29 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             # passes the particles, not output_ipos)
             save_fof_particles(pig, groups, p, boxsize=boxsize, atime=a)
         print(f"FOF at a={a:g}: {groups.ngroups} groups -> {pig}")
+        fof_physics(s, groups)
         wt.measure("FOF")
 
     sim.on_snapshot = on_snapshot_with_fof
+
+    # seeding-cadence FOF searches on PM steps (run.cpp:364,637-660;
+    # gadget_main.py:1356-1379): at a >= next_seed_check, which then moves
+    # to a * TimeBetweenSeedingSearch
+    bh_enabled = has_gas and sim.gas_physics is not None \
+        and sim.gas_physics.bh_on
+    next_seed_check = [atime]
+    seed_factor = ps.get_double("TimeBetweenSeedingSearch")
+
+    def on_pm_step(s):
+        a = s.atime()
+        if not (bh_enabled and a >= next_seed_check[0]):
+            return
+        groups = run_fof(s)
+        next_seed_check[0] = a * seed_factor
+        fof_physics(s, groups)
+        wt.measure("FOF")
+
+    sim.on_pm_step = on_pm_step
 
     def on_bad_timestep(s):
         """Emergency TIMESTEP-DUMP snapshot (run.cpp:794-797)."""
@@ -756,6 +842,13 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     fd_cpu = open(os.path.join(outdir, ps.get_string("CpuFile")), "a")
     fd_sfr = (open(os.path.join(outdir, "sfr.txt"), "a")
               if has_gas and ps.get_int("StarformationOn") else None)
+    # blackholes.txt and, with WriteBlackHoleDetails, BlackholeDetails.bin
+    # (gadget_main.py:1451-1456)
+    fd_bh = (open(os.path.join(outdir, "blackholes.txt"), "a")
+             if bh_enabled else None)
+    fd_bhdet = (open(os.path.join(outdir, "BlackholeDetails.bin"), "ab")
+                if bh_enabled and ps.get_int("WriteBlackHoleDetails")
+                else None)
     if fd_sfr is not None and fd_sfr.tell() == 0:
         fd_sfr.write(
             "# SFR.txt columns are:\n"
@@ -786,6 +879,10 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             if st["total_sm"] > 0:
                 sfr_statistics(fd_sfr, a, **st)
             s.gas_physics.last_sfr_stats = None
+        if fd_bh is not None:
+            # nothing before the first BH exists (blackhole.cpp:221-223)
+            bh_statistics_fast(fd_bh, fd_bhdet, a, s.particles, s.gas,
+                               boxsize, units)
         wt.write_cpu_log(fd_cpu, a)
         wt.reset_step()
 
@@ -793,7 +890,7 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     try:
         sim.run(max_steps=max_steps)
     finally:
-        for fd in (fd_energy, fd_cpu, fd_sfr):
+        for fd in (fd_energy, fd_cpu, fd_sfr, fd_bh, fd_bhdet):
             if fd is not None:
                 fd.close()
     return sim

@@ -7,9 +7,11 @@ patterns, the rest keep their dtype.  `window_from_numpy` turns a JAX
 PolyWindow's arrays into the port's PolyWindow.  `nu_table_from_numpy`
 turns a JAX DeltaTotTable's host state into the port's, on the port's
 Cosmology.  `gas_state_from_numpy` turns a JAX GasState's arrays into
-the port's GasState (the star and wind fields too).  `key_from_numpy`
+the port's GasState (the star, wind and black-hole fields too: BH rows
+are ptype 5 in the particles and carry `bh_mass`, `bh_mdot`), and
+`bh_params_from` a JAX BHParams into the port's.  `key_from_numpy`
 turns a JAX GasPhysics.rng_key into the port's threefry key, so that
-both packages go on drawing one stream.  All five are exact.
+both packages go on drawing one stream.  All six are exact.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ._device import resolve_device
 from .core.particles import ParticleData, u32_numpy_to_i32
 from .gravity.shortrange import PolyWindow
+from .physics.blackhole import BHParams
 from .physics.neutrinos_lra import DeltaTotTable
 from .simulation_gas import GasState
 
@@ -96,6 +99,13 @@ def gas_state_from_numpy(d: dict, device=None) -> GasState:
         kw[f.name] = torch.from_numpy(
             np.array(v, dtype=dtype, copy=True)).to(dev)
     return GasState(**kw)
+
+
+def bh_params_from(par) -> BHParams:
+    """The port's BHParams from a JAX BHParams (or any object with its
+    fields)."""
+    return BHParams(**{f.name: getattr(par, f.name)
+                       for f in dataclasses.fields(BHParams)})
 
 
 def key_from_numpy(key) -> tuple:

@@ -15,11 +15,14 @@ and `self_shield_dens` are copies of the JAX package's host code).  The
 solver loops keep the JAX package's fixed iteration counts
 (`get_equilib_ne` 40 + 1, the bracket 45, the bisection 50), so a
 cooling call makes no host sync; on a card each rate evaluation replays
-a captured CUDA graph (`heatingcooling_rate`).  The UVB rates are host floats: where
-one is zero its term is left out on the host, where the JAX package
-selects 0.0 for it on the device; where all three are zero (no TREECOOL
-file, as in star-small) the self-shielding factor multiplies nothing
-and is not computed.
+a captured CUDA graph (`heatingcooling_rate`).  The UVB rates are host
+floats or, under the fluctuating UVB, [rows] tensors
+(uv_fluctuations.local_uvbg).  Where a host rate is zero its term is left
+out on the host, where the JAX package selects 0.0 for it on the device;
+where all three are zero (no TREECOOL file, as in star-small) the
+self-shielding factor multiplies nothing and is not computed.  With a
+metal cooling table the rate subtracts Z times its lookup
+(cooling_rates.py:304-353 of the JAX package).
 """
 
 from __future__ import annotations
@@ -116,8 +119,34 @@ def self_shield_dens(redshift: float, uvbg: UVBG,
             * g12 ** (2. / 3) * (params.fBar / 0.17) ** (-1. / 3))
 
 
+def per_row(uvbg: UVBG) -> bool:
+    """Whether the UVBG's fields are per-row tensors."""
+    return torch.is_tensor(uvbg.gJH0)
+
+
+def uvbg_take(uvbg: UVBG, idx) -> UVBG:
+    """The UVBG of the rows `idx` (host-float fields stay as they are)."""
+    return UVBG(*(v[idx] if torch.is_tensor(v) else v for v in uvbg))
+
+
+def _uvbg_cat(uvbg: UVBG, times: int) -> UVBG:
+    return UVBG(*(torch.cat([v] * times) if torch.is_tensor(v) else v
+                  for v in uvbg))
+
+
 def _photo_on(uvbg: UVBG) -> bool:
+    if per_row(uvbg):
+        return True
     return uvbg.gJH0 > 0 or uvbg.gJHe0 > 0 or uvbg.gJHep > 0
+
+
+def _photorate(g, ne_safe, photofac):
+    """The photoionization term of one species: left out where a host
+    rate is 0, selected per row where the rates are tensors (the JAX
+    package's jnp.where)."""
+    if torch.is_tensor(g):
+        return torch.where(g > 0, g / ne_safe * photofac, 0.0)
+    return g / ne_safe * photofac if g > 0 else None
 
 
 # ---------------- rate fits (f32 tensors) ----------------
@@ -329,15 +358,18 @@ def _species(nh, logt, ne, uvbg: UVBG, photofac):
     aHp, gH0, aHep, aHepp, gHe0, gHep = _fits(temp)
     ne_safe = torch.clamp(ne, min=1e-50)
     den = aHp + gH0
-    if uvbg.gJH0 > 0:
-        den = den + uvbg.gJH0 / ne_safe * photofac
+    r = _photorate(uvbg.gJH0, ne_safe, photofac)
+    if r is not None:
+        den = den + r
     nH0 = aHp / den
     nHp = torch.clamp(1.0 - nH0, min=0.0)
 
-    if uvbg.gJHe0 > 0:
-        gHe0 = gHe0 + uvbg.gJHe0 / ne_safe * photofac
-    if uvbg.gJHep > 0:
-        gHep = gHep + uvbg.gJHep / ne_safe * photofac
+    r = _photorate(uvbg.gJHe0, ne_safe, photofac)
+    if r is not None:
+        gHe0 = gHe0 + r
+    r = _photorate(uvbg.gJHep, ne_safe, photofac)
+    if r is not None:
+        gHep = gHep + r
     has_ion = gHe0 > 1e-50
     gHe0_s = torch.where(has_ion, gHe0, 1.0)
     nHep = torch.where(has_ion, nh / (1 + aHep / gHe0_s + gHep / aHepp),
@@ -382,13 +414,15 @@ def get_equilib_ne(nh_total, u_cgs, helium, uvbg: UVBG,
 
 def get_heatingcooling_rate(rho_cgs, u_cgs, helium, redshift,
                             uvbg: UVBG, params: CoolingParams,
-                            ne_init=None, extra_heat=0.0):
+                            ne_init=None, metallicity=None,
+                            metal_cool=None, extra_heat=0.0):
     """Net heating - cooling in erg/s/g (reference return convention).
 
     rho_cgs: physical density in g/cm^3 (converted internally to
-    protons/cm^3 like the reference caller).  extra_heat: additional
-    uniform heating in erg/s/g.  Returns (lambda_net, ne/nh).  (The
-    metal-cooling table term waits for ROADMAP A.8's uv_fluctuations.)
+    protons/cm^3 like the reference caller).  metallicity + metal_cool
+    (a uv_fluctuations.MetalCoolingTable): subtract the cloudy net metal
+    cooling scaled by Z (cooling_rates.cpp:1154).  extra_heat:
+    additional uniform heating in erg/s/g.  Returns (lambda_net, ne/nh).
     """
     density = rho_cgs / PROTONMASS   # protons/cm^3
     nh = density * (1 - helium)
@@ -424,6 +458,8 @@ def get_heatingcooling_rate(rho_cgs, u_cgs, helium, redshift,
     # [1e-10, 1e10]
     conv = (1 - helium) ** 2 / (LAMSCALE * PROTONMASS)
     out = lambda_net * conv * density
+    if metal_cool is not None and metallicity is not None:
+        out = out - metallicity * metal_cool.eval(redshift, temp, nh)
     return out + extra_heat, nebynh
 
 
@@ -448,9 +484,12 @@ def get_neutral_fraction(rho_cgs, u_cgs, helium, uvbg: UVBG,
 # XLA program.  On a CUDA device the evaluation is captured as a CUDA
 # graph per row bucket (a power of two) and parameter set, and replayed:
 # the same kernels without the host dispatch.  The redshift is a device
-# buffer of the graph; the UV background's rates are baked in, so a
-# bucket's graph is captured again when they change (a TREECOOL run:
-# once a step).
+# buffer of the graph, and so are the metallicity (with a metal cooling
+# table, whose lookup the graph holds) and per-row UV rates (the
+# fluctuating UVB).  Host-float UV rates are baked in, so a bucket's
+# graph is captured again when they change (a TREECOOL run: once a
+# step); the graph's key holds whether the metal and per-row branches
+# are on.
 
 _GRAPHS = {}
 
@@ -461,20 +500,28 @@ def _bucket(n: int) -> int:
 
 class _RateGraph:
     """get_heatingcooling_rate over `nb` rows as a captured CUDA graph:
-    static input buffers (rho, u, ne; the redshift) and its outputs."""
+    static input buffers (rho, u, ne; the redshift; the metallicity and
+    the per-row UV rates when on) and its outputs."""
 
-    def __init__(self, nb, device, helium, uvbg, params, extra_heat):
+    def __init__(self, nb, device, helium, uvbg, params, extra_heat,
+                 metal_cool=None):
         def buf(v):
             return torch.full((nb,), v, dtype=torch.float32, device=device)
 
         # benign rows for the padding lanes
         self.rho, self.u, self.ne = buf(1e-26), buf(1e12), buf(1.0)
         self.z = torch.zeros((), dtype=torch.float32, device=device)
+        self.met = buf(0.0) if metal_cool is not None else None
+        self.uv = (UVBG(*(buf(1e10 if f == "self_shield_dens" else 0.0)
+                          for f in UVBG._fields))
+                   if per_row(uvbg) else None)
+        uv_run = self.uv if self.uv is not None else uvbg
 
         def run():
             return get_heatingcooling_rate(
-                self.rho, self.u, helium, self.z, uvbg, params,
-                ne_init=self.ne, extra_heat=extra_heat)
+                self.rho, self.u, helium, self.z, uv_run, params,
+                ne_init=self.ne, metallicity=self.met,
+                metal_cool=metal_cool, extra_heat=extra_heat)
 
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -485,37 +532,54 @@ class _RateGraph:
         with torch.cuda.graph(self.graph):
             self.out = run()
 
-    def __call__(self, rho_cgs, u_cgs, ne, redshift):
+    def __call__(self, rho_cgs, u_cgs, ne, redshift, metallicity=None,
+                 uvbg=None):
         n = u_cgs.shape[0]
         self.rho[:n].copy_(rho_cgs)
         self.u[:n].copy_(u_cgs)
         self.ne[:n].copy_(ne)
         self.z.fill_(float(redshift))
+        if self.met is not None:
+            self.met[:n].copy_(metallicity)
+        if self.uv is not None:
+            for b, v in zip(self.uv, uvbg):
+                b[:n].copy_(v)
         self.graph.replay()
         return self.out[0][:n].clone(), self.out[1][:n].clone()
 
 
 def heatingcooling_rate(rho_cgs, u_cgs, helium, redshift, uvbg: UVBG,
-                        params: CoolingParams, ne_init, extra_heat=0.0):
+                        params: CoolingParams, ne_init, metallicity=None,
+                        metal_cool=None, extra_heat=0.0):
     """get_heatingcooling_rate, replayed from a CUDA graph when the rows
     lie on a card (see above), run op by op elsewhere."""
+    if metallicity is None:
+        metal_cool = None
     if u_cgs.device.type != "cuda" or u_cgs.shape[0] == 0:
         return get_heatingcooling_rate(rho_cgs, u_cgs, helium, redshift,
                                        uvbg, params, ne_init=ne_init,
+                                       metallicity=metallicity,
+                                       metal_cool=metal_cool,
                                        extra_heat=extra_heat)
     if ne_init is None:
         # get_equilib_ne's start, ne = nH
         ne_init = rho_cgs / PROTONMASS * (1 - helium)
     nb = _bucket(u_cgs.shape[0])
+    rows = per_row(uvbg)
     key = (u_cgs.device, nb, helium, tuple(vars(params).items()),
-           float(extra_heat))
+           float(extra_heat), rows,
+           None if metal_cool is None else id(metal_cool))
+    # the graph holds the host rates it was captured with
+    uv_now = None if rows else tuple(uvbg)
     uv, g = _GRAPHS.get(key, (None, None))
-    if uv != tuple(uvbg):
+    if g is None or uv != uv_now:
         g = None
         _GRAPHS[key] = (None, None)     # free the old graph's pool first
-        g = _RateGraph(nb, u_cgs.device, helium, uvbg, params, extra_heat)
-        _GRAPHS[key] = (tuple(uvbg), g)
-    return g(rho_cgs, u_cgs, ne_init, redshift)
+        g = _RateGraph(nb, u_cgs.device, helium, uvbg, params, extra_heat,
+                       metal_cool)
+        _GRAPHS[key] = (uv_now, g)
+    return g(rho_cgs, u_cgs, ne_init, redshift, metallicity,
+             uvbg if rows else None)
 
 
 BISECT_ITERS = 50
@@ -524,22 +588,28 @@ BRACKET_ITERS = 45
 
 def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
                params: CoolingParams, min_egyspec_cgs=0.0, ne_init=None,
-               extra_heat=0.0):
+               metallicity=None, metal_cool=None, extra_heat=0.0):
     """Implicit cooling update: solve u = u_old + LambdaNet(u) dt.
 
     Vectorized version of the reference bisection (cooling.cpp:57-135):
     geometric bracket growth by 1.1x, then fixed-count bisection.
-    Returns (u_new_cgs, ne/nh at the solution).
+    metallicity/metal_cool are forwarded to the rate (metal cooling);
+    `uvbg` may hold per-row tensors.  Returns (u_new_cgs, ne/nh at the
+    solution).
     """
     u_old = torch.clamp(u_old_cgs, min=min_egyspec_cgs)
     rho_cgs, dt_s = (torch.broadcast_to(torch.as_tensor(
         x, dtype=torch.float32, device=u_old.device), u_old.shape)
         for x in (rho_cgs, dt_s))
+    if metal_cool is None:
+        metallicity = None
+    elif metallicity is not None:
+        metallicity = torch.broadcast_to(metallicity, u_old.shape)
 
-    def lamdt(u, ne, rho=rho_cgs, dt=dt_s):
+    def lamdt(u, ne, rho=rho_cgs, dt=dt_s, met=metallicity, uv=uvbg):
         ln, nebynh = heatingcooling_rate(
-            rho, u, helium, redshift, uvbg, params, ne_init=ne,
-            extra_heat=extra_heat)
+            rho, u, helium, redshift, uv, params, ne_init=ne,
+            metallicity=met, metal_cool=metal_cool, extra_heat=extra_heat)
         return ln * dt, nebynh
 
     ne = (torch.ones_like(u_old) if ne_init is None else ne_init)
@@ -554,8 +624,11 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
     # run the damped 41 iterations to the same equilibrium)
     n = u_old.shape[0]
     rho2, dt2 = torch.cat([rho_cgs, rho_cgs]), torch.cat([dt_s, dt_s])
+    met2 = None if metallicity is None else torch.cat([metallicity] * 2)
+    uv2 = _uvbg_cat(uvbg, 2)
     for _ in range(BRACKET_ITERS):
-        f2, ne_ = lamdt(torch.cat([hi, lo]), torch.cat([ne, ne]), rho2, dt2)
+        f2, ne_ = lamdt(torch.cat([hi, lo]), torch.cat([ne, ne]), rho2, dt2,
+                        met2, uv2)
         f_hi, f_lo, ne2 = f2[:n], f2[n:], ne_[n:]
         need_up = heating & (hi - u_old - f_hi < 0)
         need_dn = (~heating) & (lo - u_old - f_lo > 0) \

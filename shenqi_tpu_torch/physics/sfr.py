@@ -32,7 +32,7 @@ from ..utils.constants import (GAMMA_MINUS1, BOLTZMANN, PROTONMASS,
                                SEC_PER_YEAR)
 from ..utils import threefry
 from .cooling_rates import (UVBG, CoolingParams, heatingcooling_rate,
-                            do_cooling)
+                            do_cooling, uvbg_take)
 
 METAL_YIELD = 0.02
 
@@ -176,7 +176,8 @@ def _cooling_time_on(mask, redshift, u, rho, uvbg, cp, cu, ne, fill):
     tcool = torch.full_like(u, fill)
     ne_out = ne.clone()
     if sel.numel():
-        t_, n_ = get_cooling_time(redshift, u[sel], rho[sel], uvbg, cp,
+        t_, n_ = get_cooling_time(redshift, u[sel], rho[sel],
+                                  uvbg_take(uvbg, sel), cp,
                                   cu, ne_init=ne[sel])
         tcool[sel] = t_
         ne_out[sel] = n_
@@ -323,8 +324,8 @@ def starformation_step(key, density, egywt_density, entropy, mass, ne,
         min_egy_cgs = sp.min_egyspec() * cu.uu_in_cgs
         u_cooled_cgs, ne_c = do_cooling(
             u_cgs, rho_cgs, dtime[cool] * cu.tt_in_s,
-            1 - HYDROGEN_MASSFRAC, redshift, uvbg, coolpar,
-            min_egyspec_cgs=min_egy_cgs, ne_init=ne[cool],
+            1 - HYDROGEN_MASSFRAC, redshift, uvbg_take(uvbg, cool),
+            coolpar, min_egyspec_cgs=min_egy_cgs, ne_init=ne[cool],
             extra_heat=extra_heat)
         egy_new[cool] = u_cooled_cgs / cu.uu_in_cgs
         ne_cool[cool] = ne_c

@@ -112,6 +112,8 @@ class Simulation:
     gas: object = None
     gas_physics: object = None
     _gas_entropy_is_u: bool = False
+    # every row's FOF halo mass at the last FOF (the CLI's fof_physics)
+    halo_mass: object = None
 
     def __post_init__(self):
         if self.gravity.engine != "stencil":
@@ -692,13 +694,16 @@ class Simulation:
         """Strang-split sources (run.cpp:604-681; simulation.py:896-941
         of the JAX package): the DM velocity dispersion on PM steps,
         then cooling, star formation and winds on the active gas with
-        each row's own bin's dtime, then metal return, timed as Cooling,
-        BH (black holes are ROADMAP A.8's next item: an empty stage) and
-        MetalReturn.  Adiabatic gas has no source stage: with every
-        switch off each of the JAX package's stages returns its input."""
+        each row's own bin's dtime, then black holes (accretion,
+        feedback, swallowing, mergers, drag, dynamical friction) with the
+        same dtime, then metal return, timed as Cooling, BH and
+        MetalReturn (simulation.py:934-941).  Adiabatic gas has no source
+        stage: with every switch off each of the JAX package's stages
+        returns its input."""
         gp = self.gas_physics
         if self.gas is None or gp is None or first or not (
-                gp.cooling_on or gp.sfr_on or gp.metal_return_on):
+                gp.cooling_on or gp.sfr_on or gp.metal_return_on
+                or gp.bh_on):
             return
         times = self.times
         if is_pm:
@@ -717,6 +722,7 @@ class Simulation:
         dtime = torch.from_numpy(dt_tab).to(self.device)[sbins]
         self.gas, _ = gp.source_terms(self, self.gas, dtime)
         self._wt("Cooling")
+        self.gas = gp.blackhole_step(self, self.gas, dtime)
         self._wt("BH")
         self.gas = gp.metal_return(self, self.gas)
         self._wt("MetalReturn")

@@ -19,9 +19,14 @@ Per step (run.cpp:458-681):
 Gas rows occupy the array prefix [0, ngas); stars converted from gas
 keep their row, spawned stars take free rows anywhere.  The
 pressure-entropy IC fixed point (`setup_density_indep_entropy`) runs on
-the blocked octree walk, as in the JAX package.  Black holes, helium and
-excursion-set reionization, the fluctuating UVB and metal-line cooling
-are the rest of ROADMAP A.8: GasPhysics refuses their switches.
+the blocked octree walk, as in the JAX package.  Black holes live in the
+gas prefix too: seeding flips a gas row's ptype to BH (resumed type-5
+rows lie past the prefix), and `blackhole_step` runs accretion, thermal
+feedback, swallowing, mergers, the accretion drag and dynamical friction
+after the cooling stage.  The cooling solve takes the fluctuating UVB's per-row rates
+(`zreion_table`) and metal-line cooling (`metal_cool`).  Helium and
+excursion-set reionization are the rest of ROADMAP A.8: GasPhysics
+refuses their switches.
 
 The random streams are the JAX package's: GasPhysics holds a threefry key
 (utils/threefry.py) seeded 42 whatever the paramfile's seed, as
@@ -40,15 +45,20 @@ import torch
 from typing import Optional
 
 from ._device import resolve_device
-from .core.particles import GAS, DM, STAR, wrap_i32
+from .core.particles import GAS, DM, STAR, BH, wrap_i32, ipos_to_float
 from .core.timeline import TIMEBINS
 from .core.integrate import predictor_tables
 from .ops.tree import build_octree
-from .physics.blackhole import bh_gas_environment
-from .physics.cooling_rates import CoolingParams, TreeCool, UVBG, do_cooling
+from .physics.blackhole import (BHParams, bh_gas_environment, bh_accretion,
+                                bh_thermal_feedback, bh_swallow_gas,
+                                bh_mergers, bh_soundspeed, bh_drag_accel,
+                                dynamical_friction)
+from .physics.cooling_rates import (CoolingParams, TreeCool, UVBG,
+                                    do_cooling, uvbg_take)
 from .physics.metal_return import metal_return_step
 from .physics.sfr import (SFRParams, CoolingUnits, starformation_step,
                           entropy_to_u)
+from .physics.uv_fluctuations import local_uvbg
 from .physics.veldisp import dm_velocity_dispersion
 from .physics.winds import (WindParams, WIND_SUBGRID, WIND_FIXED_EFFICIENCY,
                             winds_subgrid_step, winds_star_feedback,
@@ -59,7 +69,8 @@ from .sph.hydro import (HydroParams, HydroResult, hydro_time_factors,
                         balsara_f1, pressure_predict)
 from .sph.stencil_hydro import stencil_hydro_walk, hydro_cover_patch
 from .utils import threefry
-from .utils.constants import GAMMA, GAMMA_MINUS1, HYDROGEN_MASSFRAC
+from .utils.constants import (GAMMA, GAMMA_MINUS1, HYDROGEN_MASSFRAC,
+                              LIGHTCGS)
 
 # the full-length star arrays slots_gc cuts with the particle arrays
 _STAR_ROWS = ("birth_a", "last_enrich_myr", "mass0", "total_returned",
@@ -67,6 +78,9 @@ _STAR_ROWS = ("birth_a", "last_enrich_myr", "mass0", "total_returned",
 # split spawns the device conversion takes per step; more (or too few
 # free rows) take the host path, which grows the arrays
 _KSPAWN = 512
+# black holes the device census pulls to the host at once; more take the
+# host path (simulation_gas.py:1145-1162 of the JAX package)
+_KBH = 64
 
 
 def _sf_stats_reduce(gas_alive, sfr, form, whole, mstar, dtime,
@@ -204,18 +218,19 @@ class GasPhysics:
     coolunits: Optional[CoolingUnits] = None
     metals: object = None        # physics.metal_return.MetalReturn
     min_enrich_window_myr: float = 1.0
-    # the rest of ROADMAP A.8: refused when on
     bh_on: bool = False
+    bhpar: Optional[BHParams] = None
+    bh_dynfric_on: bool = False
+    zreion_table: object = None  # physics.uv_fluctuations.ZreionTable
+    metal_cool: object = None    # physics.uv_fluctuations.MetalCoolingTable
+    # the rest of ROADMAP A.8: refused when on
     helium: object = None
     excursion: object = None
-    zreion_table: object = None
-    metal_cool: object = None
     # the threefry key the source terms draw from (utils/threefry.py)
     rng_key: Optional[tuple] = None
 
     def __post_init__(self):
-        on = [n for n in ("bh_on", "helium", "excursion", "zreion_table",
-                          "metal_cool") if getattr(self, n)]
+        on = [n for n in ("helium", "excursion") if getattr(self, n)]
         if on:
             raise NotImplementedError(
                 f"GasPhysics: {', '.join(on)}: not ported yet "
@@ -231,6 +246,8 @@ class GasPhysics:
         self.last_fixed_point = {}
         # sfr.txt inputs of the last source step (None once written)
         self.last_sfr_stats = None
+        # the last BH step's counts: BHs, swallowed rows, mergers
+        self.last_bh_stats = None
         self._t_grid = None
 
     def next_key(self):
@@ -447,6 +464,11 @@ class GasPhysics:
         redshift = 1.0 / atime - 1.0
         uvbg = (self.treecool.uvbg(redshift, self.coolpar)
                 if self.treecool else UVBG())
+        if self.zreion_table is not None:
+            # fluctuating UVB: per-row rates gated on z_reion
+            # (simulation_gas.py:713-719 of the JAX package)
+            uvbg = local_uvbg(uvbg, self.zreion_table.zreion(
+                ipos_to_float(p.ipos[:ng], sim.boxsize)), redshift)
         if not self.sfr_on:
             return self._pure_cooling(gas, gas_alive, dtime, a3inv,
                                       redshift, uvbg), 0
@@ -487,7 +509,9 @@ class GasPhysics:
 
     def _pure_cooling(self, gas, gas_alive, dtime, a3inv, redshift, uvbg):
         """Radiative cooling through the implicit solver, without star
-        formation; the solver runs on the active gas rows."""
+        formation, with the metal-line term when a table is loaded
+        (simulation_gas.py:877-900 of the JAX package); the solver runs on
+        the active gas rows."""
         cu = self.coolunits
         dfac = entropy_to_u(torch.clamp(
             gas.egy_wt_density if self.density_independent_sph
@@ -503,8 +527,9 @@ class GasPhysics:
             u * cu.uu_in_cgs,
             gas.density[sel] * a3inv * cu.density_in_phys_cgs,
             dtime[sel] * cu.tt_in_s, 1 - HYDROGEN_MASSFRAC, redshift,
-            uvbg, self.coolpar, min_egyspec_cgs=min_egy,
-            ne_init=gas.ne[sel])
+            uvbg_take(uvbg, sel), self.coolpar, min_egyspec_cgs=min_egy,
+            ne_init=gas.ne[sel], metallicity=gas.metallicity[sel],
+            metal_cool=self.metal_cool)
         ent = gas.entropy.clone()
         ne_all = gas.ne.clone()
         ent[sel] = (u_cgs / cu.uu_in_cgs) / torch.clamp(dfac[sel],
@@ -697,6 +722,182 @@ class GasPhysics:
             sim.boxsize, sim.atime(), nlevels=sim.gravity.tree_nlevels,
             ncrit=sim.gravity.tree_ncrit)
         return gas.replace(vdisp=torch.where(gas_alive, sigma, gas.vdisp))
+
+    # ---------- black holes (blackhole.cpp analog) ----------
+    def seed_bh(self, sim, gas: GasState, rows) -> GasState:
+        """Convert the given gas rows to black holes (fof_seed's
+        conversion; simulation_gas.py:1112-1127 of the JAX package): the
+        row becomes ptype BH and keeps its dynamic mass; its subgrid mass
+        starts at the seed mass."""
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        if rows.size == 0:
+            return gas
+        p = sim.particles
+        r = torch.from_numpy(rows).to(p.device)
+        ptype = p.ptype.clone()
+        ptype[r] = BH
+        sim.particles = p.replace(ptype=ptype)
+        bhm = gas.bh_mass.clone()
+        bhm[r] = float(np.float32(self.bhpar.SeedBlackHoleMass))
+        return gas.replace(bh_mass=bhm)
+
+    @staticmethod
+    def _bh_census(p):
+        """The alive BH rows in ascending order, from one host pull of the
+        count and the first _KBH rows (the JAX package's device census);
+        beyond _KBH the host path (simulation_gas.py:1145-1162)."""
+        bh = p.mask & (p.ptype == BH)
+        n = bh.shape[0]
+        pos = torch.cumsum(bh.to(torch.int32), 0) - 1
+        slot = torch.where(bh & (pos < _KBH), pos, _KBH).long()
+        buf = torch.full((_KBH + 1,), n, dtype=torch.int64,
+                         device=bh.device)
+        buf.scatter_(0, slot, torch.arange(n, device=bh.device))
+        # slot _KBH collects every other row: its value is not read
+        got = torch.cat([bh.sum().reshape(1), buf[:_KBH]]).tolist()
+        nbh = int(got[0])
+        if nbh <= _KBH:
+            return np.asarray(got[1:1 + nbh], np.int64)
+        return np.nonzero(bh.cpu().numpy())[0]
+
+    def blackhole_step(self, sim, gas: GasState, dtime) -> GasState:
+        """Accretion, feedback, swallowing, mergers, drag and dynamical
+        friction (simulation_gas.py:1129-1280 of the JAX package).
+
+        BH rows live in the gas prefix (gas flipped to ptype BH by
+        seed_bh; resumed type-5 rows lie past it).  The order is
+        blackhole.cpp's: environment gather -> accretion -> feedback ->
+        swallow draw (one key, drawn after the source terms' keys) ->
+        mergers (host) -> the BH_DRAG kick -> dynamical friction.
+        `dtime` is the gas prefix's per-row dtime; a BH takes its own
+        row's, and a row past the prefix the prefix's last (the JAX
+        package's gather clamps an index out of range)."""
+        if not (self.bh_on and self.bhpar):
+            return gas
+        par = self.bhpar
+        p = sim.particles
+        ng = gas.ngas
+        dev = p.device
+        # the census cap of 64 with its host path is the JAX package's
+        # (ROADMAP C.4)
+        idx_np = self._bh_census(p)
+        nbh = idx_np.size
+        self.last_bh_stats = {"nbh": nbh, "swallowed": 0, "mergers": 0}
+        if nbh == 0:
+            return gas
+        idx = torch.from_numpy(idx_np).to(dev)
+        dtime = torch.broadcast_to(torch.as_tensor(
+            dtime, dtype=torch.float32, device=dev), gas.entropy.shape)
+        # a resumed BH row past the prefix reads the prefix's last dtime, as
+        # the JAX package's clamped gather does (ROADMAP C.4)
+        dtime = dtime[torch.clamp(idx, max=ng - 1)]
+        atime = sim.atime()
+        a3inv = 1.0 / atime ** 3
+        G = sim.gravity.G
+        gas_alive = (p.mask & (p.ptype == GAS))[:ng]
+        gmass = torch.where(gas_alive, p.mass[:ng], 0.0)
+        hsml_bh = torch.clamp(p.hsml[idx] * par.BlackHoleNgbFactor,
+                              min=1e-3)
+        hsml_bh = torch.clamp(hsml_bh, max=par.BlackHoleMaxAccretionRadius)
+        bh_ipos, bh_vel = p.ipos[idx], p.vel[idx]
+        bhm, bh_dynmass = gas.bh_mass[idx], p.mass[idx]
+        gipos = p.ipos[:ng]
+
+        env = bh_gas_environment(bh_ipos, hsml_bh, gipos, gmass, gas.entropy,
+                                 p.vel[:ng], gas_alive, sim.boxsize)
+        mdot = bh_accretion(bhm, bh_vel, env, atime, G, par)
+        bhm_new = bhm + mdot * dtime
+        c_int = LIGHTCGS / par.UnitVelocity_in_cm_per_s
+        energy = (par.BlackHoleFeedbackFactor * 0.1 * mdot * dtime
+                  * c_int ** 2)
+        dent = bh_thermal_feedback(
+            bh_ipos, hsml_bh, energy, env.feedback_weight, gipos, gmass,
+            torch.clamp(gas.density, min=1e-35), gas_alive, sim.boxsize,
+            a3inv)
+        swallowed_by, gain = bh_swallow_gas(
+            self.next_key(), bh_ipos, hsml_bh, bhm_new, bh_dynmass, env,
+            gipos, gmass, gas_alive, sim.boxsize)
+        # accretion-momentum drag (blackhole.cpp:418-429)
+        adrag = bh_drag_accel(bh_vel, env.gas_vel, mdot, bh_dynmass, bhm,
+                              atime, par)
+        bh_mass = gas.bh_mass.clone()
+        bh_mass[idx] = bhm_new
+        bh_mdot = gas.bh_mdot.clone()
+        bh_mdot[idx] = mdot
+        entropy = torch.where(gas_alive, gas.entropy + dent, gas.entropy)
+
+        # swallowed rows: mask off, mass 0, their mass to the BH
+        eaten = swallowed_by >= 0
+        cs = bh_soundspeed(env.entropy, env.density, atime)
+        (n_eaten, *host) = torch.cat([
+            eaten.sum().reshape(1).to(torch.float64),
+            torch.stack([bhm_new, cs, hsml_bh], 1).double().reshape(-1),
+            ]).tolist()
+        n_eaten = int(n_eaten)
+        bhm_h, cs_h, hsml_h = np.asarray(host, np.float64).reshape(
+            nbh, 3).astype(np.float32).T
+        mass, mask = p.mass, p.mask
+        if n_eaten:
+            mass = torch.cat([torch.where(eaten, 0.0, mass[:ng]), mass[ng:]])
+            mask = torch.cat([torch.where(eaten, False, mask[:ng]),
+                              mask[ng:]])
+            mass = mass.index_add(0, idx, gain)
+
+        # BH-BH mergers (host; blackhole.py:238-292 of the JAX package,
+        # kept: ROADMAP C.4)
+        lo, hi = (w[idx].cpu().numpy().view(np.uint32).astype(np.uint64)
+                  for w in (p.id_lo, p.id_hi))
+        ids64 = (hi << np.uint64(32)) | lo
+        eaten_by, msub2, mdyn2 = bh_mergers(
+            ipos_to_float(bh_ipos, sim.boxsize).cpu().numpy(),
+            bh_vel.cpu().numpy(), hsml_h, bhm_h,
+            mass[idx].cpu().numpy(), ids64, atime, cs_h, sim.boxsize)
+        merged = eaten_by >= 0
+        if merged.any():
+            bh_mass[idx] = torch.from_numpy(msub2).to(dev)
+            mass = mass.clone() if mass is p.mass else mass
+            mass[idx] = torch.from_numpy(mdyn2).to(dev)
+            dead = torch.from_numpy(idx_np[merged]).to(dev)
+            mask = mask.clone() if mask is p.mask else mask
+            mask[dead] = False
+            mass[dead] = 0.0
+        if n_eaten or merged.any():
+            sim.particles = p.replace(mass=mass, mask=mask)
+        self.last_bh_stats.update(swallowed=n_eaten,
+                                  mergers=int(merged.sum()))
+
+        # accretion-momentum drag kick (blackhole.cpp BH_DRAG)
+        if par.BH_DRAG:
+            pall = sim.particles
+            vel = pall.vel.clone()
+            vel[idx] += adrag * dtime[:, None]
+            sim.particles = pall.replace(vel=vel)
+
+        # dynamical friction from the collisionless background: DM and
+        # stars, with method 1 as the JAX package
+        # (simulation_gas.py:1258-1278; ROADMAP C.4)
+        if self.bh_dynfric_on:
+            pall = sim.particles
+            didx = torch.nonzero(pall.mask & (pall.ptype != GAS)
+                                 & (pall.ptype != BH)).squeeze(1)
+            nd = didx.shape[0]
+            if nd:
+                sep = sim.boxsize / max(nd, 1) ** (1 / 3)
+                sigma, _, rho = dm_velocity_dispersion(
+                    pall.ipos[didx], pall.vel[didx], pall.mass[didx],
+                    torch.ones(nd, dtype=torch.bool, device=dev),
+                    pall.ipos[idx],
+                    torch.full((nbh,), float(np.float32(2 * sep)),
+                               dtype=torch.float32, device=dev),
+                    sim.boxsize, atime, nlevels=sim.gravity.tree_nlevels,
+                    ncrit=sim.gravity.tree_ncrit)
+                adf = dynamical_friction(pall.vel[idx], rho, sigma,
+                                         gas.bh_mass[idx], atime, G)
+                vel = pall.vel.clone()
+                vel[idx] += adf * dtime[:, None]
+                sim.particles = pall.replace(vel=vel)
+        return gas.replace(entropy=entropy, bh_mass=bh_mass,
+                           bh_mdot=bh_mdot)
 
     # ---------- gas -> star conversion ----------
     def _convert_stars_device(self, sim, gas: GasState, res, atime) -> int:

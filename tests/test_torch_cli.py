@@ -216,8 +216,8 @@ def test_resume_and_hci_stop(ics, tmp_path):
 def test_unported_refused(ics, tmp_path):
     """What the port does not run yet is refused, naming its ROADMAP
     item: gas particles with HydroOn and an unported subgrid switch on
-    (BlackHoleOn, A.8) and RestartFlag 99 (A.10).  The paramfile leaves SplitGravityTimestepsOn
-    at its default."""
+    (HeliumReionizationOn, A.8) and RestartFlag 99 (A.10).  The paramfile
+    leaves SplitGravityTimestepsOn at its default."""
     od = tmp_path / "o"
     od.mkdir()
     n, box = 64, 64000.0
@@ -234,10 +234,11 @@ def test_unported_refused(ics, tmp_path):
         "ID": np.arange(1 + t * n, 1 + (t + 1) * n, dtype=np.uint64)}
         for t in (0, 1)})
     pf = tmp_path / "gas.gadget"
-    pf.write_text(_GADGET.replace("HydroOn = 0", "HydroOn = 1").replace(
-        "BlackHoleOn = 0", "BlackHoleOn = 1").format(
-        ic=od / "IC_gas", out=od, a=0.125, fof=0, nmesh=16))
-    with pytest.raises(NotImplementedError, match="BlackHoleOn.*A.8"):
+    pf.write_text(_GADGET.replace("HydroOn = 0", "HydroOn = 1").format(
+        ic=od / "IC_gas", out=od, a=0.125, fof=0, nmesh=16)
+        + "HeliumReionizationOn = 1\n")
+    with pytest.raises(NotImplementedError,
+                       match="HeliumReionizationOn.*A.8"):
         tg.run_gadget(str(pf), device="cpu")
     with pytest.raises(NotImplementedError, match="RestartFlag 99"):
         tg.run_gadget(str(pf), restart_flag=99, device="cpu")

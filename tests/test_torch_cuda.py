@@ -448,3 +448,134 @@ def test_cooling_graph_equals_eager():
     nc = nc.double().numpy()
     assert (np.abs(nk.cpu().numpy() - nc)
             <= np.maximum(1e-4 * nc, 2.4e-7)).all()
+
+
+def _bh_sim(device):
+    """tests/test_torch_blackhole_sim.py's swallow-and-merger state (6^3
+    gas + 6^3 DM at a = 0.5, three BHs seeded on neighbouring rows, their
+    subgrid masses seven gas masses) on `device`, from one seed."""
+    from shenqi_tpu_torch.core.timeline import Timeline
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.physics.blackhole import BHParams
+    from shenqi_tpu_torch.simulation import Simulation
+    from shenqi_tpu_torch.simulation_gas import GasPhysics
+    from shenqi_tpu_torch.utils.units import default_units
+    box, n, a = 10000.0, 6, 0.5
+    cp = Cosmology(Omega0=0.3, OmegaLambda=0.7, OmegaBaryon=0.05,
+                   HubbleParam=0.7, RadiationOn=0, CMBTemperature=0.0)
+    cp.init(a, default_units())
+    rng = np.random.RandomState(2)
+    ng = n ** 3
+    grid = (np.arange(n) + 0.5) * (box / n)
+    gpos = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                    -1).reshape(-1, 3)
+    gpos = gpos + rng.uniform(-0.02, 0.02, gpos.shape) * (box / n)
+    m_gas = cp.OmegaBaryon * cp.RhoCrit * box ** 3 / ng
+    vel = rng.normal(0, 20, (ng, 3)).astype(np.float32)
+    vel[[0, 1, 6]] = 0.0
+    sp = [(0, gpos % box, vel, m_gas, np.arange(1, ng + 1)),
+          (1, (gpos + 0.5 * box / n) % box,
+           rng.normal(0, 20, (ng, 3)).astype(np.float32),
+           (cp.Omega0 - cp.OmegaBaryon) * cp.RhoCrit * box ** 3 / ng,
+           np.arange(ng + 1, 2 * ng + 1))]
+    gp = GasPhysics(bh_on=True, bh_dynfric_on=True,
+                    bhpar=BHParams(SeedBlackHoleMass=7.0 * m_gas,
+                                   HubbleParam=0.7))
+    sim = Simulation.from_species(
+        sp, cp, box, 2 * n, Timeline.setup([0.6], a, 0.6), a, gas_u0=10.0,
+        gas_physics=gp, device=device)
+    mean_rho = m_gas * ng / box ** 3
+    sim.gas = sim.gas.replace(
+        density=torch.tensor(rng.uniform(0.5, 2, ng) * mean_rho,
+                             dtype=torch.float32, device=device),
+        entropy=torch.tensor(rng.uniform(30, 70, ng), dtype=torch.float32,
+                             device=device))
+    hs = sim.particles.hsml.clone()
+    hs[:ng] = 1.5 * box / n
+    sim.particles = sim.particles.replace(hsml=hs)
+    sim.gas = gp.seed_bh(sim, sim.gas, [0, 1, 6])
+    return sim
+
+
+@pytest.mark.cuda
+def test_blackhole_step_on_card_equals_cpu():
+    """blackhole_step (environment, accretion, feedback, the swallow draw,
+    mergers, drag, dynamical friction) on the card and on the CPU from one
+    state: ptype, mask, the swallowed rows and the merger survivors
+    identical, bh_mass, bh_mdot, entropy, mass and velocity within 1e-5 of
+    each field's largest value, the key chains at the same state."""
+    dev = _card()
+    sims = [_bh_sim(d) for d in (dev, torch.device("cpu"))]
+    for s in sims:
+        s.gas = s.gas_physics.blackhole_step(s, s.gas, 0.002)
+    sk, sc = sims
+    assert sk.gas_physics.last_bh_stats == sc.gas_physics.last_bh_stats
+    assert sc.gas_physics.last_bh_stats["mergers"] == 2
+    assert sc.gas_physics.last_bh_stats["swallowed"] >= 1
+    assert sk.gas_physics.rng_key == sc.gas_physics.rng_key
+    for f in ("mask", "ptype"):
+        assert torch.equal(getattr(sk.particles, f).cpu(),
+                           getattr(sc.particles, f)), f
+    for a, b in ((sc.gas.bh_mass, sk.gas.bh_mass),
+                 (sc.gas.bh_mdot, sk.gas.bh_mdot),
+                 (sc.gas.entropy, sk.gas.entropy),
+                 (sc.particles.mass, sk.particles.mass),
+                 (sc.particles.vel, sk.particles.vel)):
+        a, b = a.double().numpy(), b.cpu().double().numpy()
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
+
+
+@pytest.mark.cuda
+def test_cooling_graph_metal_rows_equals_eager():
+    """The rate evaluation with a metal cooling table and a per-row UVBG
+    (the fluctuating UVB gating half the rows), replayed from its CUDA
+    graph, equals the same evaluation op by op on the card bit for bit, at
+    two row buckets and two redshifts; the implicit solver with both on the
+    card agrees with the CPU's within 1e-4 relative."""
+    from shenqi_tpu_torch.physics import cooling_rates as tc
+    from shenqi_tpu_torch.physics.uv_fluctuations import (MetalCoolingTable,
+                                                          local_uvbg)
+    dev = _card()
+    p = tc.CoolingParams(MinGasTemp=5.0)
+    zb = np.array([0.0, 2.0, 5.0, 9.0, 12.0])
+    nb = np.arange(-8.0, 4.0)
+    tb = np.array([1.0, 3.0, 4.0, 5.0, 6.0, 8.0, 9.5])
+    Z, N, T = np.meshgrid(zb, nb, tb, indexing="ij")
+    mc = MetalCoolingTable(zb, nb, tb, 3e2 * 10 ** (0.5 * N)
+                           * (1 + 0.05 * Z) * 10 ** (-0.3 * np.abs(T - 5.2)))
+    g = tc.UVBG(gJH0=1e-13, gJHe0=8e-14, gJHep=5e-16, epsH0=6e-25,
+                epsHe0=7e-25, epsHep=1e-26, self_shield_dens=3e-3)
+    rng = np.random.default_rng(3)
+    for n in (100, 3000):
+        nh = 10 ** rng.uniform(-5, 0, n)
+        u = torch.tensor(10 ** rng.uniform(10, 14, n), dtype=torch.float32)
+        rho = torch.tensor(nh / 0.76 * 1.6726e-24, dtype=torch.float32)
+        ne = torch.tensor(rng.uniform(0, 1.2, n), dtype=torch.float32)
+        met = torch.tensor(rng.uniform(0, 0.04, n), dtype=torch.float32)
+        zre = torch.tensor(rng.choice([6.0, 10.0], n), dtype=torch.float32)
+        for z in (7.0, 6.5):
+            uv = local_uvbg(g, zre.to(dev), z)
+            a = tc.heatingcooling_rate(rho.to(dev), u.to(dev), 0.24, z, uv,
+                                       p, ne.to(dev),
+                                       metallicity=met.to(dev),
+                                       metal_cool=mc)
+            b = tc.get_heatingcooling_rate(
+                rho.to(dev), u.to(dev), 0.24, torch.tensor(z, device=dev),
+                uv, p, ne_init=ne.to(dev), metallicity=met.to(dev),
+                metal_cool=mc)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    dt = torch.tensor(10 ** rng.uniform(12, 15, n), dtype=torch.float32)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        uv = local_uvbg(g, zre.to(d), 7.0)
+        out.append(tc.do_cooling(u.to(d), rho.to(d), dt.to(d), 0.24, 7.0,
+                                 uv, p, min_egyspec_cgs=1e9,
+                                 ne_init=ne.to(d), metallicity=met.to(d),
+                                 metal_cool=mc))
+    (uc, nc), (uk, nk) = out
+    uc = uc.double().numpy()
+    assert (np.abs(uk.cpu().numpy() - uc) <= 1e-4 * uc).all()
+    nc = nc.double().numpy()
+    assert (np.abs(nk.cpu().numpy() - nc)
+            <= np.maximum(1e-4 * nc, 2.4e-7)).all()

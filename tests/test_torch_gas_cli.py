@@ -26,9 +26,13 @@ and CLASS-layout transfer table.
     within 1e-4 of their max; a RestartFlag 1 resume from the last
     snapshot that restores the star state bit for bit in both packages
     and steps on;
-  * the switches of ported subgrid stages run; the rest of ROADMAP A.8
-    (black holes, helium and excursion-set reionization, metal-line
-    cooling and UV fluctuation tables) refused, each by name.
+  * (black holes on the 16^3 version of that IC: test_torch_bh_cli.py)
+  * the switches of ported subgrid stages run, and so do a
+    MetalCoolFile with MetalCoolingOn and a UVFluctuationFile (tables
+    written by chip_smoke's `_metal_cool_table` and `_zreion_table`; the gas
+    state after two steps within 1e-4 of the JAX package's max); the
+    rest of ROADMAP A.8 (helium and excursion-set reionization)
+    refused, each by name.
 """
 
 import shutil
@@ -39,7 +43,8 @@ import pytest
 import torch
 
 from chip_smoke import (_GENIC_GAS, _GADGET_GAS, _eh_table, _class_tk_table,
-                        _dm_small_cosmology)
+                        _dm_small_cosmology, _metal_cool_table,
+                        _zreion_table)
 from shenqi_tpu.cli import gadget_main as jg
 from shenqi_tpu.cli.genic_main import run_genic as j_genic
 
@@ -57,7 +62,8 @@ BOX = 128.0
 SUBGRID = ("CoolingOn", "StarformationOn", "WindOn", "BlackHoleOn",
            "MetalReturnOn", "QSOLightupOn", "HeliumReionizationOn",
            "ExcursionSetReionOn")
-PORTED = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn")
+PORTED = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn",
+          "BlackHoleOn")
 STAR_SMALL = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn")
 
 
@@ -225,47 +231,66 @@ def test_subgrid_switch_refused(runs, switch):
         assert sim.atime() > 0.01
         assert getattr(sim.gas_physics, {
             "CoolingOn": "cooling_on", "StarformationOn": "sfr_on",
-            "WindOn": "winds_on", "MetalReturnOn": "metal_return_on"}[
-                switch])
+            "WindOn": "winds_on", "MetalReturnOn": "metal_return_on",
+            "BlackHoleOn": "bh_on"}[switch])
         return
     with pytest.raises(NotImplementedError, match=f"{switch}.*A\\.8"):
         tg.run_gadget(str(pf), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        GasPhysics(bh_on=True)
+    with pytest.raises(NotImplementedError, match="helium.*A.8"):
+        GasPhysics(helium=True)
 
 
 @pytest.mark.parametrize("line", ["MetalCoolFile = x.hdf5\nMetalCoolingOn = 1",
                                   "UVFluctuationFile = x.txt"])
 def test_subgrid_file_refused(runs, line):
-    """The metal-line cooling and UV fluctuation tables are refused by
-    name, naming ROADMAP A.8."""
+    """The metal-line cooling and UV fluctuation tables, no longer
+    refused: a gas run with CoolingOn and the table (written here, `x`
+    standing for its path) runs two steps in both packages, to the same
+    gas state within 1e-4 of its max."""
     tmp, ic, _ = runs
-    pf = tmp / "refuse_file.gadget"
-    pf.write_text(_GADGET_GAS.format(ic=ic, out=tmp / "refused_file",
-                                     outputs="0.0105", a=0.0105)
-                  .replace("CoolingOn = 0", "CoolingOn = 1") + line + "\n")
     name = line.split(" ")[0]
-    with pytest.raises(NotImplementedError, match=f"{name}.*A\\.8"):
-        tg.run_gadget(str(pf), device="cpu")
+    table = (_zreion_table(tmp / "UVF", 128.0)
+             if name == "UVFluctuationFile" else _metal_cool_table(tmp / "MC"))
+    sims = {}
+    for pkg, mod in (("jax", jg), ("torch", tg)):
+        pf = tmp / f"file_{name}_{pkg}.gadget"
+        pf.write_text(_GADGET_GAS.format(
+            ic=ic, out=tmp / f"file_{name}_{pkg}", outputs="0.0105",
+            a=0.0105).replace("CoolingOn = 0", "CoolingOn = 1")
+            + line.replace("x.hdf5", table).replace("x.txt", table) + "\n")
+        sims[pkg] = (mod.run_gadget(str(pf), max_steps=2) if pkg == "jax"
+                     else mod.run_gadget(str(pf), max_steps=2,
+                                         device="cpu"))
+    sj, st = sims["jax"], sims["torch"]
+    gp = st.gas_physics
+    assert (gp.zreion_table if name == "UVFluctuationFile"
+            else gp.metal_cool) is not None
+    assert st.atime() == pytest.approx(sj.atime()) and st.atime() > 0.01
+    for f in ("entropy", "ne", "density"):
+        a = np.asarray(getattr(sj.gas, f), np.float64)
+        b = getattr(st.gas, f).numpy()
+        assert np.isfinite(b).all()
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), f
 
 
 # ------------------------------------------------------------ star-small
 SS_BOX, SS_NG, SS_A = 5000.0, 8, 0.1
 
 
-def _star_ic(path):
-    """8^3 gas + 8^3 DM at a = 0.1 in a 5 Mpc/h box: the gas lattice
+def _star_ic(path, ng=SS_NG, stars_in_clump=0):
+    """ng^3 gas + ng^3 DM at a = 0.1 in a 5 Mpc/h box: the gas lattice
     jittered, 128 gas rows in a clump of radius 0.5% of the box around
-    (0.3, 0.4, 0.5), four old stars with their blocks, and the gas
-    blocks a resume reads (so the run starts from that state)."""
+    (0.3, 0.4, 0.5), four old stars with their blocks (the first
+    `stars_in_clump` of them in the clump), and the gas blocks a resume
+    reads (so the run starts from that state)."""
     cp = Cosmology(Omega0=0.288, OmegaLambda=0.712, OmegaBaryon=0.0472,
                    HubbleParam=0.7, RadiationOn=1)
     cp.init(SS_A, default_units())
     rng = np.random.default_rng(7)
-    n = SS_NG ** 3
-    g = (np.arange(SS_NG) + 0.5) * SS_BOX / SS_NG
+    n = ng ** 3
+    g = (np.arange(ng) + 0.5) * SS_BOX / ng
     lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
-    gpos = lat + rng.normal(0, 0.05 * SS_BOX / SS_NG, lat.shape)
+    gpos = lat + rng.normal(0, 0.05 * SS_BOX / ng, lat.shape)
     k = 128
     r = 0.005 * SS_BOX * rng.uniform(0, 1, k) ** (1 / 3)
     d = rng.normal(size=(k, 3))
@@ -275,6 +300,8 @@ def _star_ic(path):
     md = (cp.Omega0 - cp.OmegaBaryon) * cp.RhoCrit * SS_BOX ** 3 / n
     ns = 4
     spos = lat[rng.choice(n, ns, replace=False)] + 0.3
+    spos[:stars_in_clump] = (np.array([0.3, 0.4, 0.5]) * SS_BOX
+                             + 2.0 * np.arange(stars_in_clump)[:, None])
 
     def vel(m):
         return rng.normal(0, 5, (m, 3)).astype(np.float32)
@@ -287,8 +314,8 @@ def _star_ic(path):
             "Mass": f32(n, mg), "ID": np.arange(1, n + 1, dtype=np.uint64),
             "Density": f32(n, cp.OmegaBaryon * cp.RhoCrit),
             "InternalEnergy": f32(n, 30.0),
-            "SmoothingLength": f32(n, 2 * SS_BOX / SS_NG)},
-        1: {"Position": (lat + 0.5 * SS_BOX / SS_NG) % SS_BOX,
+            "SmoothingLength": f32(n, 2 * SS_BOX / ng)},
+        1: {"Position": (lat + 0.5 * SS_BOX / ng) % SS_BOX,
             "Velocity": vel(n), "Mass": f32(n, md),
             "ID": np.arange(n + 1, 2 * n + 1, dtype=np.uint64)},
         4: {"Position": spos, "Velocity": vel(ns), "Mass": f32(ns, mg / 2),
@@ -305,11 +332,11 @@ def _star_ic(path):
     return str(path)
 
 
-def _star_params(path, ic, out, outputs, a):
+def _star_params(path, ic, out, outputs, a, extra="", switches=STAR_SMALL):
     text = _GADGET_GAS.format(ic=ic, out=out, outputs=outputs, a=a)
-    for sw in STAR_SMALL:
+    for sw in switches:
         text = text.replace(f"{sw} = 0", f"{sw} = 1")
-    path.write_text(text)
+    path.write_text(text + extra)
     return str(path)
 
 

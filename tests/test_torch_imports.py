@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
                  "sph.stencil_hydro", "utils.threefry",
                  "physics.cooling_rates", "physics.sfr", "physics.winds",
                  "physics.veldisp", "physics.metal_return",
-                 "physics.blackhole"):
+                 "physics.blackhole", "physics.uv_fluctuations"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
