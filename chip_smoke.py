@@ -65,7 +65,10 @@ BUDGET_S for the whole run, the kernel build included:
           table and a CLASS-layout transfer table (DifferentTransfer-
           Functions 1): genic_main with ProduceGas, RestartFlag 4, the run
           (hierarchical gravity, pressure-entropy SPH, quintic kernel) and
-          a RestartFlag 1 resume for one step; each species' P(k) at each
+          a RestartFlag 1 resume to 0.017 with CoolingOn, MetalCoolingOn
+          and a MetalCoolFile (GAS_RESUME_COOLING: the pure-cooling
+          branch, the only one that reads the table), its metal lookup
+          checked to run; each species' P(k) at each
           output against its linear spectrum (CDM 4%, baryons 12%), the
           gas fields finite and positive, adiabatic cooling of the median
           InternalEnergy (5%), the IC entropy fixed point's convergence,
@@ -90,10 +93,10 @@ BUDGET_S for the whole run, the kernel build included:
           formed (split, whole), wind kicks, metal-return stars, host
           syncs; peak memory
   bh      star-small with BlackHoleOn 1 (every BH parameter at its
-          default) resumed with RestartFlag 1 from the `stars` run's last
-          output (a = 0.118) to BH_RUNS' output with FOF, past the first
-          PM step's seeding FOF, then a second RestartFlag 1 resume for
-          one step.  The one cut: MinFoFMassForNewSeed and
+          default) and a UVFluctuationFile (_zreion_table: z_reion 6 in
+          one octant, 10 elsewhere) resumed with RestartFlag 1 from the
+          `stars` run's last output (a = 0.1178) to BH_RUNS' output with
+          FOF, past the first PM step's seeding FOF.  The one cut: MinFoFMassForNewSeed and
           MinMStarForNewSeed lowered below the groups that hold the stars
           at 0.118 (BH_SEEDING; star-small seeds at a = 0.14-0.15).
           Checks: the star rows restored exactly at the start; BHs seeded
@@ -101,26 +104,59 @@ BUDGET_S for the whole run, the kernel build included:
           count and mass; accretion (mdot > 0, mass above the seed); the
           feedback never lowering an entropy and raising some;
           BlackholeDetails.bin in the JAX record layout with the seeded
-          IDs; total mass within 1e-6; every field finite; every BH in a
-          PIG group and the PIG's BH count the run's; the BH rows
-          restored exactly on the second resume; every launch shape
-          against the plain version.  Printed: star-small's first
+          IDs; the per-row UVB rates read at every source step, with gas
+          rows on both sides of z_reion; total mass within 1e-6; every
+          field finite; every BH in a PIG group and the PIG's BH count
+          the run's; every launch shape against the plain version.  Printed: star-small's first
           blackholes.txt line (0.14-0.15) and PIG BH counts; per step the
           BH stage, seeds, swallowed rows, mergers, the other stages and
-          host syncs; each FOF's seconds; peak memory; one do_cooling of
-          the end state with a metal cooling table and a fluctuating-UVB
-          table beside the table-free solve.  The CPU rehearsal runs it at
+          host syncs; each FOF's seconds; peak memory.  The CPU rehearsal runs it at
           2 x 16^3 from the rehearsal's `stars` output (0.104) to 0.108
           with STARS_REHEARSAL's SF thresholds and BH_REHEARSAL_SEEDING
           (16^3 forms no FOF group of 8 or more: groups of 4, seeds in any
           group holding a star)
+  reion   star-small with every subgrid switch: BlackHoleOn (BH_SEEDING),
+          HeliumReionizationOn with a ReionHistFile, ExcursionSetReionOn
+          with a J21CoeffFile (both tables written by tools/ while the
+          earlier phases run) and WritePlaneOn, resumed with RestartFlag 1
+          from the `bh` output (0.119) to the outputs 0.1193 and 0.1196,
+          each the end of a PM step whose FOF runs the QSO bubbles and
+          the excursion pass.  Cuts (REION_SWITCHES): the HeII history
+          from z = 9 (the reference's starts at z 4-6), QSOMinMass 0.15
+          (below the one star-holding group at 0.118), QSOMeanBubble 1
+          Mpc/h (below the 5 Mpc/h box), ReionNionPhotPerBary 40000
+          (4000: no cell crossed the barrier).  Checks: the star and BH
+          rows restored exactly; HeIII rows at the helium FOF, no entropy
+          of an ionized row lowered and no other row touched; local_j21
+          never falling, gas rows with J21 > 0 after the last pass, and
+          zreion_p set only where J21 > 0; both xHI in [0, 1]; three FITS
+          planes at each output with NPART the
+          live count; total mass within 1e-6; every field finite; every
+          launch shape against the plain version.  Printed: bubbles and
+          new HeIII rows per FOF, xHI and the seconds of each excursion
+          pass, per step the stages and host syncs, peak memory.  The
+          rehearsal resumes from its `bh` output (0.108) to 0.109 with
+          QSOMinMass 0
+  lc      a lensing run's last stretch on the DM path: dm-small's
+          cosmology on the EH table, 64^3 in a 256 Mpc/h box (larger than
+          the lightcone radius, so at most 3^3 box replicas), genic_main
+          at z = 0.05, gadget_main to a = 0.96 with FOF at 0.955 and 0.96,
+          LightconeOn and WritePlaneOn with two 20 Mpc/h slabs, one
+          wrapping the box's edge (LC_PLANES).  Checks: every Aemit within
+          its drift's (a0, a1], every crossing's distance within [R(a1),
+          R(a0)], the LIGHTCONE blocks in the JAX layout; at each of the
+          twelve deposits the counts summing to n_plane, which lies
+          between 0 and the live count and equals a float64 host count
+          of the slab, and the FITS NPART those counts; every launch
+          shape against the plain version.  Printed: the lightcone's host
+          seconds per drift
   profile where the time goes in one full force pass at that size
           (host-clock stages, then torch.profiler device time by kernel
           and the device's busy share); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars` and `bh`, with the row
-of its largest launch shape),
+`slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars`, `bh`, `reion` and
+`lc`, with the row of its largest launch shape),
 the JSON kernel table (the `cli` run's launches and largest shape), the
 card's name and power limit, and the run's result as one JSON object.
 `--steps-log PATH` appends dm-small's per-step record (bins, force
@@ -134,6 +170,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -151,25 +188,34 @@ REHEARSAL_BUDGET_S = 1500.0
 # at 128^3 the IC fixed point and the first loop pass (3 until the
 # `stars` phase needed the budget)
 GAS_A_IC = 0.01
-GAS_RUNS = (("0.01,0.012,0.015", 0.015), ("0.01,0.012,0.015,0.016", 0.016))
+GAS_RUNS = (("0.01,0.012,0.015", 0.015),
+            ("0.01,0.012,0.015,0.016,0.017", 0.017))
+# the resume cools with metal lines (_metal_cool_table): its first step
+# after the restart takes no source step, so it runs to 0.017 (one step
+# to 0.016 until the review repair)
+GAS_RESUME_COOLING = "MetalCoolingOn = 1\nMetalCoolFile = {metal}\n"
 GAS128_STEPS = 1
 # dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to its
 # first output, 0.15, to leave the budget to `stars` and `bh` (0.25 until
 # the first, 0.2 until the second); the neutrino
 # run to its first output, then resumes from it for one step (a
-# paramfile with a later second output, as a user extends a run)
+# paramfile with a later second output, as a user extends a run): the
+# outputs 0.0101 and 0.0102 since `reion` and `lc` came (0.0102 and
+# 0.0104 before: the host response update grows with the history, B.5)
 DMSMALL_TIMEMAX = 0.15
-NU_RUNS = (("0.0102", 0.0102), ("0.0102,0.0104", 0.0104))
+NU_RUNS = (("0.0101", 0.0101), ("0.0101,0.0102", 0.0102))
 # star-small (validation/star_small.py:36-77) from z = 9 to the first
 # output after stars have formed and metal return has acted, then a resume
 # from it with a later output.  With the EH table the first star formed at
 # a = 0.11669 on the card, the first metal returned at 0.11724 (its first
 # runs: the star-forming gas appears at a = 0.110, where the JAX package's
 # run on the reference's CLASS table had it at 0.1025,
-# validation/NOTES_star_small_r2.md), so the run ends at the output 0.118;
-# star-small's own criterion, a star before 0.115 (check_results.py), is
-# printed against the run's first star
-STARS_RUNS = (("0.105,0.11,0.115,0.118", 0.118),)
+# validation/NOTES_star_small_r2.md), so the run ends at an output past
+# both, 0.1178 (0.118 until the `reion` and `lc` phases needed the budget;
+# on the card the first star formed at 0.11692-0.11705 and the first
+# metal returned at 0.11762); star-small's own criterion, a star
+# before 0.115 (check_results.py), is printed against the run's first star
+STARS_RUNS = (("0.105,0.11,0.115,0.1178", 0.1178),)
 STARS_FIRST_BY = 0.115
 # the CPU rehearsal's 16^3 resolves no gas dense enough for the SF
 # threshold, nor halos for FOF: it lowers the thresholds, and takes the
@@ -181,23 +227,61 @@ STARS_REHEARSAL = ("CritPhysDensity = 1e-5\nCritOverDensity = 1.0\n"
                    "DensityKernelType = cubic\n")
 STARS_REHEARSAL_RUNS = (("0.102,0.104", 0.104),)
 # the `bh` phase: star-small with BlackHoleOn 1 resumed from the `stars`
-# run's last output (0.118) to an output ~16 steps on, then resumed from
-# that output for one step.  A PM step ends at each output (its length is
-# clamped to the next sync point), so the output 0.1185, 8 steps on,
+# run's last output (0.1178) to the output 0.119 (0.1195 until `reion`
+# took its place as the resume after it).  A PM step ends at each output
+# (its length is clamped to the next sync point), so the output 0.1185
 # brings the first PM step's seeding FOF.  The one cut: the seeding
 # thresholds, lowered below the one FOF group that holds the run's stars
 # at 0.118 (mass 0.2135, stars 2.978e-4, in 1e10 Msun/h, on the card;
 # star-small's are 2 and 5e-4, and it seeds its first BHs at
 # a = 0.14-0.15, past this budget; PERF.md section 4)
-BH_RUNS = (("0.105,0.11,0.115,0.118,0.1185,0.1195", 0.1195),
-           ("0.105,0.11,0.115,0.118,0.1185,0.1195,0.12", 0.12))
+BH_RUNS = (("0.105,0.11,0.115,0.1178,0.1185,0.119", 0.119),)
 BH_SEEDING = "MinFoFMassForNewSeed = 0.15\nMinMStarForNewSeed = 2e-4\n"
 # the rehearsal's 16^3 forms no FOF group of 8 members or more: its `bh`
 # phase links groups of 4 and seeds in any group with a star
-BH_REHEARSAL_RUNS = (("0.102,0.104,0.106,0.108", 0.108),
-                     ("0.102,0.104,0.106,0.108,0.109", 0.109))
+BH_REHEARSAL_RUNS = (("0.102,0.104,0.106,0.108", 0.108),)
 BH_REHEARSAL_SEEDING = ("FOFHaloMinLength = 4\nMinFoFMassForNewSeed = 0.1\n"
                         "MinMStarForNewSeed = 1e-5\n")
+# the `reion` phase: star-small with every subgrid switch (BlackHoleOn with
+# BH_SEEDING, HeliumReionizationOn with a ReionHistFile, ExcursionSetReionOn
+# with a J21CoeffFile, WritePlaneOn) resumed from the `bh` run's output
+# 0.119 to the outputs 0.1193 and 0.1196: each ends a PM step, whose FOF
+# runs the QSO bubbles and after which the excursion pass runs.  Cuts
+# (PERF.md section 4): the HeII history linear from z = HEII_Z[0] = 9
+# (above the run's z = 7.3; the reference's starts at z 4-6) to 6;
+# QSOMinMass 0.15 (default 100, in 1e10 Msun/h), below the one group that
+# holds stars at 0.118 (0.2135); QSOMeanBubble 1000 kpc/h, below the
+# 5 Mpc/h box (default 20 Mpc/h); ReionNionPhotPerBary 4000 -> 40000, so
+# that the cells around the box's few star-holding groups cross the
+# excursion barrier fcoll > 1/ReionEfficiency by a = 0.1196 (at 4000 none
+# did: xHI 0.998 by volume, PR 11 call 1; star-small's 5 Mpc/h holds 5-7
+# stars then).  UVFluctuationFile is the `bh` phase's, since the J21
+# rates take precedence over it here, and MetalCoolFile the `gas`
+# resume's, since a run with star formation never reads it (in both
+# packages).  The rehearsal's 16^3 groups are far lighter: QSOMinMass 0
+# there
+REION_RUNS = ((BH_RUNS[0][0] + ",0.1193,0.1196", 0.1196),)
+REION_REHEARSAL_RUNS = ((BH_REHEARSAL_RUNS[0][0] + ",0.1085,0.109", 0.109),)
+REION_SWITCHES = """HeliumReionizationOn = 1
+ReionHistFile = {heii}
+QSOMinMass = {qmin}
+QSOMeanBubble = 1000.0
+ExcursionSetReionOn = 1
+J21CoeffFile = {j21}
+ReionNionPhotPerBary = 40000.0
+WritePlaneOn = 1
+"""
+# the `lc` phase: a lensing run's last stretch on the DM path, dm-small's
+# cosmology on the EH table at 64^3 in a 256 Mpc/h box (larger than the
+# lightcone radius R(a) at a = 0.952, ~156 Mpc/h, so the replica loop
+# spans at most (2 x 1 + 1)^3 boxes), genic_main at z = 0.05, gadget_main
+# to a = 0.96 with FOF, the lightcone and the planes at 0.955 and 0.96:
+# two slabs 20 Mpc/h thick, one about the box's middle and one about
+# 250 Mpc/h, which wraps the box's edge
+LC_BOX = 256000.0
+LC_Z_IC = 0.05
+LC_RUNS = ("0.955,0.96", 0.96)
+LC_PLANES = "PlaneThickness = 20000.0\nPlaneCutPoints = 128000,250000\n"
 # star-small's own criteria this depth cannot reach (check_results.py):
 # the first blackholes.txt line, and the PIG BH counts at 0.125/0.15/0.2
 BH_FIRST_LINE = (0.14, 0.15)
@@ -593,6 +677,54 @@ def _metal_cool_table(path):
     return str(path)
 
 
+# the repo's own table generators (tools/): a HeII reionization history
+# (linear in z from HEII_Z[0] to HEII_Z[1], HEII_NUMZ rows) and a J21
+# coefficient table, written in process instead of the reference's
+# examples/HeIIReionizationTable and J21_to_rates files
+_TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+HEII_Z = (9.0, 6.0)
+HEII_NUMZ = 4
+
+
+def _start_tables(heii_path, j21_path, z=HEII_Z, numz=HEII_NUMZ):
+    """Start the generators of the tables whose path is given (the HeII
+    history integrates its heating rate with scipy's dblquad, ~4 s a row
+    on one core); returns their processes."""
+    cmds = []
+    if heii_path is not None:
+        cmds.append([sys.executable,
+                     os.path.join(_TOOLS, "HeII_input_file_maker.py"),
+                     "--alphaq", "1.7", "--hist", "linear", "--z_i",
+                     str(z[0]), "--z_f", str(z[1]), "--numz", str(numz),
+                     "--outfile", str(heii_path)])
+    if j21_path is not None:
+        cmds.append([sys.executable,
+                     os.path.join(_TOOLS, "make_j21coefftable.py"), "-o",
+                     str(j21_path)])
+    return [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+            for c in cmds]
+
+
+def _wait_tables(procs, timeout=300):
+    for pr in procs:
+        try:
+            _, err = pr.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            pr.communicate()
+            raise SmokeFailure(f"{pr.args[1]} did not finish in {timeout} s")
+        if pr.returncode:
+            raise SmokeFailure(f"{pr.args[1]} failed: {err.strip()[-300:]}")
+
+
+def _reion_tables(heii_path, j21_path, **kw):
+    """Write the tables whose path is given; returns both paths."""
+    _wait_tables(_start_tables(heii_path, j21_path, **kw))
+    return (None if heii_path is None else str(heii_path),
+            None if j21_path is None else str(j21_path))
+
+
 def _bin_span(bins):
     """'35-38 (4)' for the occupied timebins of a step."""
     if not bins:
@@ -670,7 +802,13 @@ class Smoke:
         self.budget = REHEARSAL_BUDGET_S if rehearsal else BUDGET_S
         self.stars_launches, self.stars_row = 0, {}
         self.bh_launches, self.bh_row = 0, {}
-        self.stars_dir = None
+        self.reion_launches, self.reion_row = 0, {}
+        self.n_lc = 16 if rehearsal else 64
+        self.lc_launches, self.lc_row = 0, {}
+        self.stars_dir = self.bh_dir = None
+        # the reionization tables, written by tools/ from the start on
+        self.table_dir, self.table_procs = None, []
+        self.heii = self.j21 = None
         self.cli_row, self.dmsmall_row, self.nu_row = {}, {}, {}
         self.gas_row, self.gas128_row = {}, {}
         self.steps_log = None
@@ -698,6 +836,27 @@ class Smoke:
             f"device={self.dev}"
             + (f" name={torch.cuda.get_device_name(0)}"
                if not self.rehearsal else ""))
+
+    def start_tables(self):
+        """Start tools/' generators of the HeII history and the J21 table
+        the `reion` phase reads; they run on the host beside the earlier
+        phases."""
+        import tempfile
+        self.table_dir = tempfile.mkdtemp(prefix="shenqi_tables_")
+        self.heii = os.path.join(self.table_dir, "HeIIReionizationTable")
+        self.j21 = os.path.join(self.table_dir, "J21_to_rates.txt")
+        self.table_procs = _start_tables(self.heii, self.j21)
+
+    def close(self):
+        """Stop the generators if they still run, and remove every
+        directory the phases left."""
+        for pr in self.table_procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+        for d in (self.table_dir, self.stars_dir, self.bh_dir):
+            if d:
+                shutil.rmtree(d, ignore_errors=True)
 
     # -------------------------------------------------------------- build
     def build(self):
@@ -1627,7 +1786,7 @@ class Smoke:
         with ProduceGas and DifferentTransferFunctions, RestartFlag 4, the
         run from z = 99 to a = 0.015 with outputs and FOF at 0.01, 0.012
         and 0.015, then a RestartFlag 1 resume from the last output for
-        one step."""
+        0.017 with CoolingOn, MetalCoolingOn and a MetalCoolFile."""
         import tempfile
         tmp = tempfile.mkdtemp(prefix="shenqi_gas_")
         try:
@@ -1700,16 +1859,25 @@ class Smoke:
         from shenqi_tpu_torch.io.bigfile import BigFile
         from shenqi_tpu_torch.io.snapshot import read_snapshot
         from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.physics.uv_fluctuations import MetalCoolingTable
         from shenqi_tpu_torch.utils import constants as C
+        torch = self.torch
         ng = self.n_gas
         gp, ic, pk, tk = self._gas_files(tmp, ng)
         out = os.path.join(tmp, "output")
         pps = []
         for i, (outputs, amax) in enumerate(GAS_RUNS):
             pps.append(os.path.join(tmp, f"p{i}.gadget"))
+            pf = _GADGET_GAS.format(ic=ic, out=out, outputs=outputs, a=amax)
+            if i:
+                # the resume cools: the pure-cooling branch, the one that
+                # reads a MetalCoolFile (a run with star formation never
+                # does, in both packages)
+                pf = pf.replace("CoolingOn = 0", "CoolingOn = 1") \
+                    + GAS_RESUME_COOLING.format(metal=_metal_cool_table(
+                        os.path.join(tmp, "MCool")))
             with open(pps[-1], "w") as f:
-                f.write(_GADGET_GAS.format(ic=ic, out=out, outputs=outputs,
-                                           a=amax))
+                f.write(pf)
         dev = "cpu" if self.rehearsal else None
         t = time.perf_counter()
         with _Wrap(genic_main, "displacement_fields") as disp:
@@ -1778,19 +1946,28 @@ class Smoke:
             self._species_pk_check("gas", snap, a, theory)
         del sim
 
-        # RestartFlag 1 from the last output, one step on: the restored
+        # RestartFlag 1 from the last output to 0.017: the restored
         # state is the saved one (no cold start, no fixed point)
         saved = BigFile(os.path.join(out, "PART_002"))
         u_saved = saved["0/InternalEnergy"].read()
-        sim, t1, rec2, sph, _, _ = self._gas_run("gas", pps[1], 1,
-                                                 max_steps=2)
-        say("gas", f"RestartFlag 1 from PART_002 to a={sim.atime():.6f}: "
-            f"{t1:.2f} s, {len(sph.passes)} SPH passes, IC fixed points "
-            f"{len(sph.fixed_points)}")
+        with _Wrap(MetalCoolingTable, "eval") as mcw:
+            sim, t1, rec2, sph, _, _ = self._gas_run("gas", pps[1], 1)
+        ent = sim.gas.entropy
+        say("gas", f"RestartFlag 1 from PART_002 to a={sim.atime():.6f} "
+            f"with CoolingOn, MetalCoolingOn and a MetalCoolFile: {t1:.2f} "
+            f"s, {len(sph.passes)} SPH passes, IC fixed points "
+            f"{len(sph.fixed_points)}, Cooling "
+            f"{sim.walltime.total_acc.get('Cooling', 0.0):.3f} s; the metal "
+            f"table's lookup ran {len(mcw.each)} times (eager calls and "
+            f"CUDA graph captures; travis's gas has no metals, so the lines "
+            f"add 0 here)")
         if sph.fixed_points or not sim.atime() > GAS_RUNS[0][1] \
                 or not np.isfinite(u_saved).all():
             raise SmokeFailure("the resume did not restore the gas state "
                                "and step on")
+        if not mcw.each or not bool(torch.isfinite(ent).all()):
+            raise SmokeFailure("the resume's cooling did not read the metal "
+                               "table, or gave a non-finite entropy")
         del sim
         shapes = dict(rec.shapes)
         for k_, v in rec2.shapes.items():
@@ -1900,13 +2077,13 @@ class Smoke:
         self._sph_profile(sim)
 
     def _sph_profile(self, sim, phase="gas128"):
-        """One all-active density + hydro pass of a run's end state: host
-        clock, then torch.profiler device time by operation group and the
-        device's busy share."""
+        """One all-active density + hydro pass of a run's end state on the
+        host clock, by piece.  (Its torch.profiler pass by operation group
+        went for the `reion` and `lc` phases' budget; PERF.md keeps its
+        earlier numbers.)"""
         if self.rehearsal:
             say(phase, "SPH profile skipped in the CPU rehearsal")
             return
-        from torch.profiler import profile, ProfilerActivity
         from shenqi_tpu_torch.sph import stencil_density as sd
         from shenqi_tpu_torch.sph import stencil_hydro as sh
         gp = sim.gas_physics
@@ -1950,31 +2127,6 @@ class Smoke:
             + f", the rest (predictions, the hsml update, scatters, "
             f"pressure, Balsara) {rest:.1f} ms; the pair passes "
             f"{pair:.1f} ms, {100 * pair / split_wall:.1f}% of the pass")
-        wall = split_wall
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            one_pass()
-        groups = {}
-        rows = _device_rows(prof)
-        for ms_, _, key in rows:
-            k = key.lower()
-            g = ("sort" if ("sort" in k or "radix" in k) else
-                 "gather/scatter" if any(w in k for w in (
-                     "scatter", "index", "gather")) else
-                 "scan" if "scan" in k else
-                 "reduce" if "reduce" in k else
-                 "copy" if ("copy" in k or "memcpy" in k or "memset" in k)
-                 else "elementwise" if "elementwise" in k else "other")
-            groups[g] = groups.get(g, 0.0) + ms_
-        busy = sum(groups.values())
-        say(phase, f"all-active SPH pass ({walks[0][0] if walks else 0} "
-            f"targets, {len(walks) - n_cover} density walks, {n_cover} "
-            f"cover-patch walks): {wall:.1f} ms; device busy {busy:.1f} ms = "
-            f"{100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%);"
-            f" by group " + ", ".join(f"{k} {v:.2f} ms" for k, v in
-                                     sorted(groups.items(),
-                                            key=lambda x: -x[1])))
-        for ms_, cnt, key in sorted(rows, reverse=True)[:8]:
-            say(phase, f"  {ms_:9.3f} ms {cnt:6d}x {key[:90]}")
 
     # -------------------------------------------------------------- stars
     def stars(self):
@@ -2166,20 +2318,21 @@ class Smoke:
     def bh(self):
         """star-small with BlackHoleOn 1 (every BH parameter at its
         default: BH_DynFrictionMethod 1, BH_DRAG 1, WriteBlackHoleDetails
-        1) resumed with RestartFlag 1 from the `stars` run's last output
-        (a = 0.118, which holds stars) to BH_RUNS[0]'s output with FOF,
-        then a second RestartFlag 1 resume from that output for one step;
-        one `do_cooling` of the end state's gas timed with a metal
-        cooling table and a fluctuating-UVB table written here.  The one
-        cut: the seeding thresholds (BH_SEEDING).  The first resume does
-        the `stars` resume's checks (the star rows restored exactly)."""
+        1) and a UVFluctuationFile resumed with RestartFlag 1 from the
+        `stars` run's last output (a = 0.1178, which holds stars) to
+        BH_RUNS[0]'s output with FOF.  The one cut: the seeding thresholds (BH_SEEDING).  The resume does the
+        `stars` resume's checks (the star rows restored exactly); the
+        `reion` phase resumes from its output and checks the BH rows."""
         if self.stars_dir is None:
             raise SmokeFailure("bh needs the stars phase's output")
+        tmp, self.stars_dir = self.stars_dir, None
         try:
-            self._bh(self.stars_dir)
-        finally:
-            shutil.rmtree(self.stars_dir, ignore_errors=True)
-            self.stars_dir = None
+            self._bh(tmp)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        # the reion phase resumes from the bh run's output
+        self.bh_dir = tmp
 
     def _bh_groups(self, pig):
         """The FOF groups of a PIG that hold stars: (mass, stellar mass)
@@ -2216,6 +2369,8 @@ class Smoke:
                 f"({a:.4g}, {b:.4g})" for a, b in groups0[:12])
             + f"; the seeding thresholds {seeding.strip()!r} "
             f"(star-small's: 2 and 5e-4)")
+        # the fluctuating UVB: per-row rates gated on a z_reion table
+        uvf = _zreion_table(os.path.join(tmp, "UVF"), 5.0)
         pps = []
         for i, (outputs, amax) in enumerate(runs):
             pps.append(os.path.join(tmp, f"bh{i}.gadget"))
@@ -2223,14 +2378,22 @@ class Smoke:
                 f.write(_GADGET_STARS.format(ic=ic, out=out, outputs=outputs,
                                              a=amax)
                         .replace("BlackHoleOn = 0", "BlackHoleOn = 1")
-                        + seeding)
+                        + seeding + f"UVFluctuationFile = {uvf}\n")
         _, saved0 = read_snapshot(os.path.join(out, f"PART_{start:03d}"))
         m_start = sum(float(np.sum(b["Mass"], dtype=np.float64))
                       for b in saved0.values())
         n_cpu0 = len(_cpu_steps(os.path.join(out, "cpu.txt")))
         dev = "cpu" if self.rehearsal else None
         seeds, bhsteps, feedback, fofs, got0 = [], [], [], [], {}
+        uvrows = []
         live = {"t": time.perf_counter(), "sim": None}
+
+        def on_local_uvbg(fn, uv, zreion, redshift):
+            # rows the table reionized by now, of all (no host sync here)
+            uvrows.append(torch.stack([(zreion >= redshift).sum(),
+                                       torch.tensor(zreion.numel(),
+                                                    device=zreion.device)]))
+            return fn(uv, zreion, redshift)
 
         def on_seed(fn, gp, sim_, gas, rows):
             out_ = fn(gp, sim_, gas, rows)
@@ -2303,6 +2466,7 @@ class Smoke:
         with _Wrap(GP, "seed_bh", through=on_seed), \
                 _Wrap(GP, "blackhole_step", through=on_bh_step), \
                 _Wrap(sg, "bh_thermal_feedback", through=on_feedback), \
+                _Wrap(sg, "local_uvbg", through=on_local_uvbg), \
                 _Wrap(gadget_main, "fof", through=on_fof), \
                 _Wrap(gadget_main, "_restore_gas_state", through=on_restore), \
                 _Wrap(gadget_main._DeviceWalltime, "write_cpu_log",
@@ -2370,6 +2534,15 @@ class Smoke:
                 f"mean {np.mean(syncs):.1f}, max {np.max(syncs)}")
 
         # the checks
+        uvr = [x.tolist() for x in uvrows]
+        say("bh", f"UVFluctuationFile (z_reion 6 in one octant, 10 "
+            f"elsewhere): {len(uvr)} source steps read per-row rates, gas "
+            f"rows reionized of all " + ", ".join(
+                f"{a}/{b}" for a, b in uvr[:3]) + (" ..." if len(uvr) > 3
+                                                   else ""))
+        if not uvr or not all(0 < a < b for a, b in uvr):
+            raise SmokeFailure("the fluctuating UVB's per-row rates did not "
+                               "run, or did not split the gas by z_reion")
         if not seeds:
             raise SmokeFailure("no BH was seeded in the bh run")
         seed_mass = np.float32(2e-5)
@@ -2466,103 +2639,390 @@ class Smoke:
                         BH_PIG_COUNTS)
             + f", {bh_ids.size} in this run's PIG at a = {runs[0][1]}")
         self._check_calls("bh", rec)
-        self._bh_cooling(sim, tmp)
-        del sim
-
-        # RestartFlag 1 from the bh output, one step on: the BH rows
-        # restored exactly from the snapshot's BH blocks
-        _, saved = read_snapshot(snap)
-        got = {}
-
-        def spy(fn, sim_, *a, **kw):
-            fn(sim_, *a, **kw)
-            rows = torch.nonzero(sim_.particles.ptype == 5).squeeze(1)
-            got.update(rows=rows.cpu().numpy(),
-                       ids=sim_.particles.ids64()[rows.cpu().numpy()],
-                       bh_mass=sim_.gas.bh_mass[rows].cpu().numpy(),
-                       bh_mdot=sim_.gas.bh_mdot[rows].cpu().numpy())
-        with _Wrap(gadget_main, "_restore_gas_state", through=spy), \
-                _RunRecorder(self._sync) as rec2:
-            sim = gadget_main.run_gadget(pps[1], 1, max_steps=2, device=dev)
-        if not (np.array_equal(got.get("ids"), saved[5]["ID"])
-                and np.array_equal(got.get("bh_mass"),
-                                   saved[5]["BlackholeMass"])
-                and np.array_equal(got.get("bh_mdot"),
-                                   saved[5]["BlackholeAccretionRate"])):
-            raise SmokeFailure("the resume did not restore the BH rows "
-                               "exactly")
-        say("bh", f"RestartFlag 1 from PART_{n_out - 1:03d} to "
-            f"a={sim.atime():.6f}: the {len(saved[5]['ID'])} BH rows' "
-            f"ptype, BlackholeMass and BlackholeAccretionRate restored "
-            f"exactly, {int((sim.particles.ptype == 5).sum())} BH rows "
-            f"after the step")
-        if not sim.atime() > runs[0][1]:
-            raise SmokeFailure("the bh resume did not step on")
-        del sim, saved, saved0
+        del sim, saved0
         shapes = dict(rec.shapes)
-        for k_, v in rec2.shapes.items():
-            shapes.setdefault(k_, [0] + v[1:])[0] += v[0]
-        del rec, rec2
+        del rec
         self.bh_row = self._check_shapes(shapes, "bh")
 
-    def _bh_cooling(self, sim, tmp):
-        """One `do_cooling` of the end state's alive gas (every row active
-        for the star-small run's last mean dtime), replayed from the rate
-        graphs: without tables, with a metal cooling table, and with that
-        and a fluctuating-UVB table gating a UV background (the tables
-        written in `tmp` as tests/test_uvfluc_helium.py writes them; each
-        solve timed after a first call that captures its graphs)."""
-        import os
+    # -------------------------------------------------------------- reion
+    def reion(self):
+        """star-small with every subgrid switch, resumed with RestartFlag 1
+        from the `bh` run's output (a = 0.119) to REION_RUNS' outputs
+        0.1193 and 0.1196 with FOF: BlackHoleOn with BH_SEEDING,
+        HeliumReionizationOn with a ReionHistFile and ExcursionSetReionOn
+        with a J21CoeffFile (both written by tools/ at the start of the
+        script) and WritePlaneOn.
+        Each output ends a PM step, whose FOF runs the QSO bubbles; the
+        excursion pass follows in that step.  The cuts are
+        REION_SWITCHES'."""
+        if self.bh_dir is None:
+            raise SmokeFailure("reion needs the bh phase's output")
+        tmp, self.bh_dir = self.bh_dir, None
+        try:
+            self._reion(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _reion(self, tmp):
         torch = self.torch
-        from shenqi_tpu_torch.physics import cooling_rates as cr
-        from shenqi_tpu_torch.physics.uv_fluctuations import (
-            ZreionTable, MetalCoolingTable, local_uvbg)
-        from shenqi_tpu_torch.physics.sfr import entropy_to_u
-        from shenqi_tpu_torch.core.particles import ipos_to_float
-        from shenqi_tpu_torch.utils.constants import HYDROGEN_MASSFRAC
-        gp, g, p = sim.gas_physics, sim.gas, sim.particles
-        ng = g.ngas
-        rows = torch.nonzero((p.ptype[:ng] == 0) & p.mask[:ng]).squeeze(1)
-        cu = gp.coolunits
-        a3inv = 1.0 / sim.atime() ** 3
-        z = 1.0 / sim.atime() - 1.0
-        dfac = entropy_to_u(torch.clamp(g.egy_wt_density[rows], min=1e-35),
-                            a3inv)
-        u = g.entropy[rows] * dfac * cu.uu_in_cgs
-        rho = g.density[rows] * a3inv * cu.density_in_phys_cgs
-        dt = torch.full_like(u, 3e-4 * cu.tt_in_s)
-        zt = ZreionTable.load(_zreion_table(os.path.join(tmp, "UVF"), 5.0),
-                              sim.boxsize, 3.085678e21)
-        mc = MetalCoolingTable.load(_metal_cool_table(os.path.join(tmp,
-                                                                   "MC")))
-        uv0 = cr.UVBG(gJH0=1e-13, gJHe0=8e-14, gJHep=5e-16, epsH0=6e-25,
-                      epsHe0=7e-25, epsHep=1e-26, self_shield_dens=3e-3)
-        uvr = local_uvbg(uv0, zt.zreion(ipos_to_float(p.ipos[rows],
-                                                      sim.boxsize)), z)
-        met = g.metallicity[rows]
-        res = {}
-        for name, uv, kw in (("table-free", cr.UVBG(), {}),
-                             ("metal", cr.UVBG(),
-                              dict(metallicity=met, metal_cool=mc)),
-                             ("metal + zreion", uvr,
-                              dict(metallicity=met, metal_cool=mc))):
-            ms = []
-            for _ in range(2):
-                self._sync()
-                t = time.perf_counter()
-                uo, ne = cr.do_cooling(u, rho, dt, 1 - HYDROGEN_MASSFRAC, z,
-                                       uv, gp.coolpar, ne_init=g.ne[rows],
-                                       **kw)
-                self._sync()
-                ms.append((time.perf_counter() - t) * 1e3)
-            if not bool(torch.isfinite(uo).all()):
-                raise SmokeFailure(f"do_cooling ({name}) gave a non-finite u")
-            res[name] = (ms, float((uo / u).median()))
-        say("bh", f"one do_cooling of the end state's {rows.numel()} gas "
-            f"rows at z = {z:.3f}, dtime 3e-4: " + "; ".join(
-                f"{k} {v[0][1]:.1f} ms (first call {v[0][0]:.1f} ms, "
-                f"median u ratio {v[1]:.4g})" for k, v in res.items())
-            + (" (CPU)" if self.rehearsal else " (from the replayed graphs)"))
+        from shenqi_tpu_torch.cli import gadget_main
+        from shenqi_tpu_torch import simulation_gas as sg
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.physics.plane import read_fits_plane
+        GP = sg.GasPhysics
+        out = os.path.join(tmp, "output")
+        ic = os.path.join(tmp, "IC", "IC")
+        runs = REION_REHEARSAL_RUNS if self.rehearsal else REION_RUNS
+        seeding = (STARS_REHEARSAL + BH_REHEARSAL_SEEDING if self.rehearsal
+                   else BH_SEEDING)
+        t = time.perf_counter()
+        _wait_tables(self.table_procs)
+        say("reion", f"the tables from tools/ ({self.heii}: linear HeIII "
+            f"history z = {HEII_Z[0]} to {HEII_Z[1]}, {HEII_NUMZ} rows; "
+            f"{self.j21}) ready, waited {time.perf_counter() - t:.2f} s")
+        pp = os.path.join(tmp, "reion.gadget")
+        with open(pp, "w") as f:
+            f.write(_GADGET_STARS.format(ic=ic, out=out, outputs=runs[0][0],
+                                         a=runs[0][1])
+                    .replace("BlackHoleOn = 0", "BlackHoleOn = 1")
+                    + seeding + REION_SWITCHES.format(
+                        heii=self.heii, j21=self.j21,
+                        qmin=0.0 if self.rehearsal else 0.15))
+        with open(os.path.join(out, "LastSnapNum.txt")) as f:
+            start = int(f.read().strip())
+        _, saved0 = read_snapshot(os.path.join(out, f"PART_{start:03d}"))
+        m_start = sum(float(np.sum(b["Mass"], dtype=np.float64))
+                      for b in saved0.values())
+        n_cpu0 = len(_cpu_steps(os.path.join(out, "cpu.txt")))
+        dev = "cpu" if self.rehearsal else None
+        got0, helium, exc, planes = {}, [], [], []
+        live = {"t": time.perf_counter(), "sim": None}
+
+        def on_restore(fn, sim_, *a, **kw):
+            fn(sim_, *a, **kw)
+            g, p = sim_.gas, sim_.particles
+            for ty, keys in ((4, ("birth_a", "star_metallicity",
+                                  "total_returned", "last_enrich_myr")),
+                             (5, ("bh_mass", "bh_mdot"))):
+                rows = torch.nonzero(p.ptype == ty).squeeze(1)
+                got0[ty] = {k: getattr(g, k)[rows].cpu().numpy()
+                            for k in keys}
+                got0[ty]["ID"] = p.ids64()[rows.cpu().numpy()]
+
+        def on_helium(fn, gp, sim_, gas, *a, **kw):
+            h0, e0 = gas.heiii.clone(), gas.entropy.clone()
+            g2 = fn(gp, sim_, gas, *a, **kw)
+            new = g2.heiii & ~h0
+            helium.append((sim_.step_count, sim_.atime(),
+                           dict(gp.last_helium or {}),
+                           int(new.sum()), int(g2.heiii.sum()),
+                           bool((g2.entropy[new] >= e0[new]).all()),
+                           bool((g2.entropy[~new] == e0[~new]).all()),
+                           bool((g2.heiii | ~h0).all())))
+            return g2
+
+        def on_excursion(fn, gp, sim_, gas, hm):
+            j0 = gas.local_j21.clone()
+            g2 = fn(gp, sim_, gas, hm)
+            z = g2.zreion_p
+            exc.append((sim_.step_count, sim_.atime(), gp.last_excursion_s,
+                        sim_.excursion_xhi, int((g2.local_j21 > 0).sum()),
+                        bool((g2.local_j21 >= j0).all()),
+                        bool(((z < 0) | (g2.local_j21 > 0)).all()),
+                        int((z >= 0).sum())))
+            return g2
+
+        def on_planes(fn, snapnum, a, cp, deposit, ntot, *rest):
+            files = fn(snapnum, a, cp, deposit, ntot, *rest)
+            planes.append((snapnum, a, ntot, files))
+            return files
+
+        def catch(fn, sim_, *a, **kw):
+            live["sim"] = sim_
+            return fn(sim_, *a, **kw)
+
+        def step_line(fn, wt, fd, a):
+            sim_ = live["sim"]
+            now = time.perf_counter()
+            say("reion", f"  live: step {sim_.step_count if sim_ else '-'} "
+                f"to a={a:.5f} in {now - live['t']:.2f} s; " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in sorted(wt.step_acc.items())))
+            live["t"] = now
+            check_budget("reion run", self.budget)
+            return fn(wt, fd, a)
+
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        with _Wrap(GP, "helium_step", through=on_helium), \
+                _Wrap(GP, "excursion_step", through=on_excursion), \
+                _Wrap(gadget_main, "write_planes_deposit",
+                      through=on_planes), \
+                _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                _Wrap(gadget_main, "_restore_gas_state", through=on_restore), \
+                _Wrap(gadget_main._DeviceWalltime, "write_cpu_log",
+                      through=step_line), \
+                _Wrap(gadget_main.Simulation, "run", through=catch), \
+                _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            sim = gadget_main.run_gadget(pp, 1, device=dev)
+        t_run = time.perf_counter() - t
+        self.reion_launches = p2p_blocked.launches
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        # the start restored the star and BH rows exactly (the checks of
+        # the bh phase's former one-step resume)
+        for ty, names in ((4, (("StellarFormationTime", "birth_a"),
+                               ("Metallicity", "star_metallicity"),
+                               ("TotalMassReturned", "total_returned"),
+                               ("LastEnrichmentMyr", "last_enrich_myr"))),
+                          (5, (("BlackholeMass", "bh_mass"),
+                               ("BlackholeAccretionRate", "bh_mdot")))):
+            if ty not in saved0:
+                raise SmokeFailure(f"PART_{start:03d} has no type {ty} rows")
+            ok = np.array_equal(got0.get(ty, {}).get("ID"), saved0[ty]["ID"])
+            for name, key in names:
+                ok &= np.array_equal(got0[ty].get(key), saved0[ty][name])
+            if not ok:
+                raise SmokeFailure(f"the resume did not restore the type "
+                                   f"{ty} rows exactly")
+        say("reion", f"RestartFlag 1 from PART_{start:03d}: the "
+            f"{len(saved0[4]['ID'])} star rows and {len(saved0[5]['ID'])} "
+            f"BH rows restored exactly (IDs, StellarFormationTime, "
+            f"Metallicity, TotalMassReturned, LastEnrichmentMyr, "
+            f"BlackholeMass, BlackholeAccretionRate)")
+        steps = self._run_steps(out, sim)[n_cpu0:]
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        say("reion", f"gadget_main RestartFlag 1 with every subgrid switch "
+            f"to a={sim.atime():.5f}: {t_run:.2f} s, {len(steps) - 1} "
+            f"steps, {len(rec.calls)} force calls, "
+            f"{len(sim.power_history)} PM steps; stage totals " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.reion_launches} in "
+            f"{len(rec.shapes)} shapes; peak device memory {mem:.2f} GiB")
+        syncs = np.diff([0] + rec.syncs) if rec.syncs else []
+        for i, (a, stages) in enumerate(steps):
+            say("reion", f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: host syncs "
+                + (f"{syncs[i]}" if i < len(syncs) else "-")
+                + "; stages " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in sorted(stages.items())))
+        for step, a, last, nnew, nall, up, same, kept in helium:
+            say("reion", f"helium FOF at step {step}, a={a:.5f}: "
+                f"{last.get('bubbles', 0)} bubbles, {nnew} rows newly "
+                f"HeIII, {nall} in all; entropy raised or kept on them "
+                f"{up}, unchanged elsewhere {same}")
+            if not (up and same and kept):
+                raise SmokeFailure("a helium FOF lowered an ionized row's "
+                                   "entropy, touched another row, or "
+                                   "un-ionized one")
+        for step, a, sec, xhi, nj, mono, zset, nz in exc:
+            say("reion", f"excursion pass at step {step}, a={a:.5f}: "
+                f"{sec:.4f} s, xHI volume {xhi[0]:.6f} mass {xhi[1]:.6f}, "
+                f"{nj} gas rows with J21 > 0, {nz} with zreion set; J21 "
+                f"never fell {mono}, zreion only where J21 > 0 {zset}")
+            if not (mono and zset and 0 <= xhi[0] <= 1 and 0 <= xhi[1] <= 1):
+                raise SmokeFailure("an excursion pass lowered a J21, set a "
+                                   "zreion without J21, or gave xHI outside "
+                                   "[0, 1]")
+        if not helium or not any(h[4] for h in helium):
+            raise SmokeFailure("no HeIII row appeared at the helium FOFs")
+        if not exc:
+            raise SmokeFailure("no excursion pass ran")
+        if not exc[-1][4]:
+            raise SmokeFailure("no gas row read J21 > 0: the per-row J21 "
+                               "rates did not run")
+        n_out = len(runs[0][0].split(","))
+        want = set(range(n_out - 2, n_out))
+        for snapnum, a, ntot, files in planes:
+            hdrs = [read_fits_plane(f_)[0] for f_ in files]
+            npart = [int(h["NPART"]) for h in hdrs]
+            say("reion", f"planes at a={a:.5f}: {len(files)} FITS files "
+                f"(normals " + ", ".join(f_.rsplit("normal", 1)[1][0]
+                                         for f_ in files)
+                + f"), NPART {npart} against {ntot} live rows")
+            if len(files) != 3 or any(n_ != ntot for n_ in npart):
+                raise SmokeFailure("the planes are not three normals with "
+                                   "NPART equal to the live count")
+        if {pl[0] for pl in planes} != want:
+            raise SmokeFailure("the planes were not written at the run's "
+                               "outputs")
+        for g_, _ in fofw.calls:
+            say("reion", f"FOF: {g_.ngroups} groups; " + _fof_line(g_.stats))
+        p = sim.particles
+        m_end = float(p.mass.double()[p.mask].sum())
+        dm_rel = abs(m_end - m_start) / m_start
+        say("reion", f"total mass {m_end:.9g} against PART_{start:03d}'s "
+            f"{m_start:.9g}: relative change {dm_rel:.3e} (limit 1e-6); "
+            f"{int(sim.gas.heiii.sum())} HeIII rows at the end")
+        if not dm_rel < 1e-6:
+            raise SmokeFailure(f"total mass changed by {dm_rel:.3e}")
+        if abs(sim.atime() - runs[0][1]) > 1e-6:
+            raise SmokeFailure(f"the reion run ended at a={sim.atime()}")
+        for i in sorted(want):
+            self._star_fields_check(os.path.join(out, f"PART_{i:03d}"),
+                                    os.path.join(out, f"PIG_{i:03d}"),
+                                    "reion")
+        for name in ("local_j21", "zreion_p", "entropy"):
+            if not bool(torch.isfinite(getattr(sim.gas, name)).all()):
+                raise SmokeFailure(f"the gas {name} is not finite")
+        self._check_calls("reion", rec)
+        del sim, saved0
+        shapes = dict(rec.shapes)
+        del rec
+        self.reion_row = self._check_shapes(shapes, "reion")
+
+    # ----------------------------------------------------------------- lc
+    def lc(self):
+        """A lensing run's last stretch on the DM path: dm-small's
+        cosmology on the EH table, 64^3 in a 256 Mpc/h box, genic_main at
+        z = 0.05, then gadget_main to a = 0.96 with FOF, LightconeOn and
+        WritePlaneOn (LC_PLANES' slabs), outputs at 0.955 and 0.96."""
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="shenqi_lc_")
+        try:
+            self._lc(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _lc(self, tmp):
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main, genic_main
+        from shenqi_tpu_torch.io.bigfile import BigFile
+        from shenqi_tpu_torch.ops.p2p import p2p_blocked
+        from shenqi_tpu_torch.physics import plane as pl
+        from shenqi_tpu_torch.physics.lightcone import Lightcone
+        from shenqi_tpu_torch.physics.plane import read_fits_plane
+        ng = self.n_lc
+        nmesh = 2 * ng
+        pk = os.path.join(tmp, "pk_eh.txt")
+        _eh_table(pk)
+        out = os.path.join(tmp, "output")
+        gp, pp = os.path.join(tmp, "p.genic"), os.path.join(tmp, "p.gadget")
+        with open(gp, "w") as f:
+            f.write(_GENIC.format(out=tmp, ng=ng, box=LC_BOX, pk=pk)
+                    .replace("Redshift = 9", f"Redshift = {LC_Z_IC}"))
+        with open(pp, "w") as f:
+            f.write(_GADGET.replace("OutputList = {a}",
+                                    f"OutputList = {LC_RUNS[0]}").format(
+                ic=os.path.join(tmp, "IC", "IC"), out=out, a=LC_RUNS[1],
+                fof=1, nmesh=nmesh) + "LightconeOn = 1\nWritePlaneOn = 1\n"
+                + LC_PLANES)
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        genic_main.run_genic(gp, device=dev)
+        say("lc", f"genic_main Ngrid {ng}, box {LC_BOX:.0f} kpc/h, z = "
+            f"{LC_Z_IC}: {time.perf_counter() - t:.2f} s")
+        deposits = []
+
+        def on_deposit(fn, ipos, alive, boxsize, normal, center, thickness,
+                       *a):
+            counts, n_plane = fn(ipos, alive, boxsize, normal, center,
+                                 thickness, *a)
+            # the slab's particles counted on the host in float64, apart
+            # from the port's integer slab test
+            x = ((ipos[:, normal].cpu().numpy().view(np.uint32)
+                  .astype(np.float64) / 2.0 ** 32 * boxsize)
+                 - (center - thickness / 2)) % boxsize
+            live = alive.cpu().numpy()
+            deposits.append((normal, center, int(counts.sum()),
+                             int(n_plane), int((live & (x < thickness))
+                                               .sum()), int(live.sum())))
+            return counts, n_plane
+
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        with _Wrap(gadget_main, "plane_counts_ipos", through=on_deposit), \
+                _Wrap(gadget_main, "fof", keep=True) as fofw, \
+                _RunRecorder(self._sync) as rec:
+            sim = gadget_main.run_gadget(pp, 2, device=dev)
+        t_run = time.perf_counter() - t
+        self.lc_launches = p2p_blocked.launches
+        mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if not self.rehearsal else float("nan"))
+        log = sim.lightcone_log
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        lc_s = [x[3] for x in log]
+        say("lc", f"gadget_main RestartFlag 2, {ng ** 3} particles, mesh "
+            f"{nmesh}, to a={sim.atime():.5f}: {t_run:.2f} s, "
+            f"{sim.step_count} steps, {len(log)} drifts, "
+            f"{len(sim.power_history)} PM steps; stage totals " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in tot.items())
+            + f"; p2p_blocked launches {self.lc_launches} in "
+            f"{len(rec.shapes)} shapes; peak device memory {mem:.2f} GiB")
+        say("lc", f"lightcone host seconds per drift: mean "
+            f"{np.mean(lc_s):.4f}, max {np.max(lc_s):.4f}, total "
+            f"{np.sum(lc_s):.3f}; crossings per drift " + ", ".join(
+                str(x[2]) for x in log))
+        bf = BigFile(os.path.join(out, "LIGHTCONE"))
+        layout = {"1/Position": ("<f8", 3), "1/Velocity": ("<f4", 3),
+                  "1/ID": ("<u8", 1), "1/Aemit": ("<f4", 1)}
+        for name, (dt, nm) in layout.items():
+            blk = bf[name]
+            if np.dtype(blk.dtype) != np.dtype(dt) or blk.nmemb != nm:
+                raise SmokeFailure(f"LIGHTCONE {name} is {blk.dtype} x "
+                                   f"{blk.nmemb}, not the JAX layout's")
+        aem = bf["1/Aemit"].read()
+        pos = bf["1/Position"].read()
+        ncross = sum(x[2] for x in log)
+        if len(aem) != ncross or ncross == 0:
+            raise SmokeFailure(f"LIGHTCONE holds {len(aem)} rows against "
+                               f"{ncross} crossings")
+        # genic's default unit system: velocities in km/s
+        lcone = Lightcone(CP=sim.CP, boxsize=LC_BOX, unit_velocity=1e5)
+        d = np.linalg.norm(pos, axis=1)
+        o, bad_a, bad_d = 0, 0, 0
+        for a0, a1, n, _ in log:
+            seg = slice(o, o + n)
+            o += n
+            tol = 1e-6 * a1
+            bad_a += int(((aem[seg] < a0 - tol) | (aem[seg] > a1 + tol))
+                         .sum())
+            r_hi, r_lo = lcone.radius(a0), lcone.radius(a1)
+            tol_d = 1e-9 * LC_BOX
+            bad_d += int(((d[seg] > r_hi + tol_d) | (d[seg] <= r_lo - tol_d))
+                         .sum())
+        say("lc", f"LIGHTCONE: {len(aem)} rows in the JAX layout "
+            f"(Position <f8 x 3, Velocity <f4 x 3, ID <u8, Aemit <f4); "
+            f"Aemit outside its drift's (a0, a1]: {bad_a}; distance outside "
+            f"[R(a1), R(a0)]: {bad_d}")
+        if bad_a or bad_d:
+            raise SmokeFailure("a lightcone crossing lies outside its "
+                               "drift's interval or shell")
+        for nrm, cen, c, n, host, al in deposits:
+            say("lc", f"plane deposit, normal {nrm}, slab about {cen:.0f} "
+                f"kpc/h: counts sum {c}, n_plane {n}, the host's float64 "
+                f"count {host}, of {al} live rows")
+        if len(deposits) != 12 or not all(c == n == host and 0 < n < al
+                                          for _, _, c, n, host, al
+                                          in deposits):
+            raise SmokeFailure("the plane counts do not sum to the slab's "
+                               "particles")
+        fits = sorted(f_ for f_ in os.listdir(out) if f_.endswith(".fits"))
+        nparts = []
+        for f_ in fits:
+            h, data = read_fits_plane(os.path.join(out, f_))
+            nparts.append(int(h["NPART"]))
+            if not np.isfinite(data).all():
+                raise SmokeFailure(f"{f_} is not finite")
+        say("lc", f"{len(fits)} FITS planes: " + ", ".join(fits)
+            + f"; NPART {nparts}")
+        if sorted(nparts) != sorted(d[3] for d in deposits):
+            raise SmokeFailure("the planes' NPART are not their slabs' "
+                               "counts")
+        if len(fits) != 12 or len(fofw.calls) != 2:
+            raise SmokeFailure("the lc run did not write its planes and "
+                               "FOF at both outputs")
+        self._check_calls("lc", rec)
+        del sim
+        shapes = dict(rec.shapes)
+        del rec
+        self.lc_row = self._check_shapes(shapes, "lc")
 
     def _star_fields_check(self, snap, pig, phase="stars"):
         """The gas and star blocks of a PART finite, the gas density,
@@ -2694,7 +3154,9 @@ class Smoke:
                 ("gas", self.gas_row, self.gas_launches),
                 ("gas128", self.gas128_row, self.gas128_launches),
                 ("stars", self.stars_row, self.stars_launches),
-                ("bh", self.bh_row, self.bh_launches))]),
+                ("bh", self.bh_row, self.bh_launches),
+                ("reion", self.reion_row, self.reion_launches),
+                ("lc", self.lc_row, self.lc_launches))]),
               flush=True)
         print(json.dumps({"kernels": [entry(self.cli_row,
                                             self.cli_launches)]}),
@@ -3203,9 +3665,10 @@ def main(argv) -> int:
     smoke.steps_log = steps_log
     smoke.budget = budget
     try:
+        smoke.start_tables()
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
                       "dmsmall", "nu", "gas", "gas128", "stars", "bh",
-                      "profile"):
+                      "reion", "lc", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:
                 torch.cuda.synchronize()
@@ -3218,6 +3681,7 @@ def main(argv) -> int:
               file=sys.stderr, flush=True)
         return 1
     finally:
+        smoke.close()
         faulthandler.cancel_dump_traceback_later()
     say("done", f"all phases passed in {elapsed():.1f} s "
         f"(budget {budget:.0f} s)")

@@ -18,11 +18,14 @@ pressure-entropy or density-entropy SPH; CoolingOn, StarformationOn,
 WindOn and MetalReturnOn with an optional TreeCoolFile, MetalCoolFile
 with MetalCoolingOn and UVFluctuationFile; BlackHoleOn with its
 seeding FOF on PM steps, blackholes.txt and BlackholeDetails.bin;
+QSOLightupOn/HeliumReionizationOn with a ReionHistFile (a FOF on every
+PM step of the helium era); ExcursionSetReionOn with a J21CoeffFile;
 snapshots with the gas, star and BH blocks, sfr.txt, resumes that
-restore the gas, star and BH state).  What the port does not have yet is
-refused with the ROADMAP item that brings it: helium and excursion-set
-reionization (A.8), --mesh, lightcones, lensing planes, RestartFlag 99
-and the erfc short-range window.
+restore the gas, star and BH state), LightconeOn (the LIGHTCONE
+bigfile) and WritePlaneOn (FITS potential planes at each snapshot FOF).
+What the port does not have yet is refused with the ROADMAP item that
+brings it: --mesh (A.9), RestartFlag 99 (A.10) and the erfc short-range
+window (A.12).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import torch
@@ -59,7 +63,13 @@ from ..physics.blackhole import BHParams, seed_black_holes
 from ..physics.cooling_rates import CoolingParams, TreeCool, UVBG
 from ..physics.metal_return import MetalReturn
 from ..physics.sfr import SFRParams, CoolingUnits
-from ..physics.uv_fluctuations import ZreionTable, MetalCoolingTable
+from ..physics.uv_fluctuations import (ZreionTable, MetalCoolingTable,
+                                       J21Coeffs)
+from ..physics.excursion import ExcursionSetParams
+from ..physics.helium_reion import HeliumReion, QSOLightupParams
+from ..physics.lightcone import Lightcone
+from ..physics.plane import (PlaneParams, plane_counts_ipos,
+                             write_planes_deposit)
 from ..physics.winds import WindParams
 from ..physics.neutrinos_lra import DeltaTotTable
 from ..fof.fof import fof
@@ -87,9 +97,6 @@ def load_cosmology(ps, hdr: SnapshotHeader, time_begin, units):
     return cp
 
 
-# the subgrid master switches of gas runs still to be ported (ROADMAP
-# A.8's rest)
-_SUBGRID = ("QSOLightupOn", "HeliumReionizationOn", "ExcursionSetReionOn")
 # the data_yields/ beside the package: the metal return's default tables
 _YIELDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data_yields")
@@ -182,7 +189,7 @@ def _write_power(fn, kk, pk, nm, d1):
                         f"{pk[j] / d1 ** 2:g}\n")
 
 
-def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
+def _refuse_unported(ps, restart_flag, mesh_devices):
     """What the run path needs that this slice has not ported (FOF and
     P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
     first two)."""
@@ -190,15 +197,8 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas):
         (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
         (bool(mesh_devices), "--mesh (the multi-device slab run)", "A.9")]
     if restart_flag not in (3, 4):
-        on = [name for name in _SUBGRID if ps.get_int(name)]
-        refuse += [
-            (has_gas and on, f"subgrid gas physics ({', '.join(on)})",
-             "A.8"),
-            (ps.get_int("LightconeOn"), "LightconeOn", "A.8"),
-            (ps.get_int("WritePlaneOn"), "WritePlaneOn (lensing planes)",
-             "A.8"),
-            (ps.get_enum("ShortRangeForceWindowType") != 0,
-             "ShortRangeForceWindowType erfc", "A.12")]
+        refuse.append((ps.get_enum("ShortRangeForceWindowType") != 0,
+                       "ShortRangeForceWindowType erfc", "A.12"))
     for cond, what, item in refuse:
         if cond:
             raise NotImplementedError(
@@ -373,6 +373,39 @@ def _gas_physics(ps, cp, units, atime, gas_mass, boxsize):
             UnitTime_in_s=units.UnitTime_in_s,
             UnitVelocity_in_cm_per_s=units.UnitVelocity_in_cm_per_s,
             HubbleParam=cp.HubbleParam, BH_DRAG=ps.get_int("BH_DRAG"))
+    # QSO helium reionization (cooling_qso_lightup.cpp; gadget_main.py:
+    # 993-1008): only with a history table
+    helium = None
+    rhf = ps.get_string("ReionHistFile")
+    if (ps.get_int("QSOLightupOn") or ps.get_int("HeliumReionizationOn")) \
+            and rhf:
+        helium = HeliumReion.load(rhf, QSOLightupParams(
+            qso_candidate_min_mass=ps.get_double("QSOMinMass"),
+            qso_candidate_max_mass=ps.get_double("QSOMaxMass"),
+            mean_bubble=ps.get_double("QSOMeanBubble"),
+            var_bubble=max(ps.get_double("QSOVarBubble"), 1e-10),
+            heIIIreion_finish_frac=ps.get_double(
+                "QSOHeIIIReionFinishFrac")))
+    # excursion-set reionization (uvbg.cpp; gadget_main.py:1010-1034)
+    excursion = j21c = None
+    if ps.get_int("ExcursionSetReionOn"):
+        excursion = ExcursionSetParams(
+            UVBGdim=ps.get_int("UVBGdim"),
+            ReionRBubbleMax=ps.get_double("ReionRBubbleMax"),
+            ReionRBubbleMin=ps.get_double("ReionRBubbleMin"),
+            ReionDeltaRFactor=ps.get_double("ReionDeltaRFactor"),
+            ReionFilterType=ps.get_int("ReionFilterType"),
+            RtoMFilterType=ps.get_int("RtoMFilterType"),
+            ReionNionPhotPerBary=ps.get_double("ReionNionPhotPerBary"),
+            AlphaUV=ps.get_double("AlphaUV"),
+            EscapeFractionNorm=ps.get_double("EscapeFractionNorm"),
+            EscapeFractionScaling=ps.get_double("EscapeFractionScaling"),
+            ReionUseParticleSFR=ps.get_int("ReionUseParticleSFR"),
+            ReionGammaHaloBias=ps.get_double("ReionGammaHaloBias"),
+            ReionSFRTimescale=ps.get_double("ReionSFRTimescale"))
+        jcf = ps.get_string("J21CoeffFile")
+        if jcf:
+            j21c = J21Coeffs.load(jcf)
     gp = GasPhysics(
         density_independent_sph=bool(ps.get_int("DensityIndependentSphOn")),
         eta=ps.get_double("DensityResolutionEta"),
@@ -386,7 +419,9 @@ def _gas_physics(ps, cp, units, atime, gas_mass, boxsize):
         coolunits=CoolingUnits.create(units, cp.HubbleParam),
         metals=metals, bh_on=bh_on, bhpar=bhpar,
         bh_dynfric_on=bh_on and ps.get_int("BH_DynFrictionMethod") > 0,
-        zreion_table=zreion_table, metal_cool=metal_cool)
+        zreion_table=zreion_table, metal_cool=metal_cool, helium=helium,
+        excursion=excursion, j21_coeffs=j21c,
+        excursion_zstop=ps.get_double("ExcursionSetZStop"), units=units)
     init_temp = ps.get_double("InitGasTemp")
     if init_temp < 0:
         init_temp = cp.CMBTemperature / atime
@@ -566,7 +601,7 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
 
     hdr, (pos, vel, ids, mass, ptype), snap_blocks = _read_particles(icfile)
     has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
-    _refuse_unported(ps, restart_flag, mesh_devices, has_gas)
+    _refuse_unported(ps, restart_flag, mesh_devices)
     units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
                            hdr.UnitVelocity_in_cm_per_s)
     atime = hdr.Time
@@ -655,6 +690,24 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     sim.nu_table = _build_nu_table(ps, cp, units, boxsize, nmesh, atime,
                                    restart_flag, snapnum, icfile)
 
+    # lightcone crossings collected after each drift (lightcone.cpp;
+    # gadget_main.py:1136-1150 of the JAX package), on the host
+    lightcone = None
+    if ps.get_int("LightconeOn"):
+        lightcone = Lightcone(CP=cp, boxsize=boxsize,
+                              unit_velocity=units.UnitVelocity_in_cm_per_s)
+
+        def on_drift(s, a0, a1):
+            t0 = time.perf_counter()
+            p = s.particles
+            n = lightcone.compute(a0, a1, s.output_ipos().cpu().numpy(),
+                                  p.vel.cpu().numpy(), p.ids64(),
+                                  p.mask.cpu().numpy())
+            # (a0, a1, crossings, host seconds) of each drift
+            s.lightcone_log.append((a0, a1, n, time.perf_counter() - t0))
+        sim.on_drift = on_drift
+        sim.lightcone_log = []
+
     snap_counter = [_resume_snap_counter(outdir)]
     base = ps.get_string("SnapshotFileBase")
 
@@ -724,9 +777,10 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
 
     def fof_physics(s, groups):
         """FOF-cadence physics (gadget_main.py:1320-1354 of the JAX
-        package): every row's halo mass, and the BH seeds: in each group
+        package): every row's halo mass; the BH seeds: in each group
         above the seeding thresholds without a BH, the densest alive gas
-        row (the first of equals, numpy's argmax) becomes a BH."""
+        row (the first of equals, numpy's argmax) becomes a BH; then the
+        HeIII bubbles."""
         gpx = s.gas_physics
         if s.gas is None or gpx is None:
             return
@@ -737,22 +791,52 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
         if groups.ngroups:
             halo_mass[ing] = groups.masses[gid[ing] - 1]
         s.halo_mass = torch.from_numpy(halo_mass).to(dev)
-        if not (gpx.bh_on and gpx.bhpar is not None and groups.ngroups):
-            return
-        to_seed = seed_black_holes(groups, groups.mass_by_type[:, 4],
-                                   groups.length_by_type[:, 5], gpx.bhpar)
-        ngc = s.gas.ngas
-        dens = s.gas.density.cpu().numpy()
-        is_gas = (p.ptype[:ngc] == 0).cpu().numpy() \
-            & p.mask[:ngc].cpu().numpy()
-        rows = []
-        for gi in to_seed:
-            cand = np.nonzero((gid[:ngc] == gi + 1) & is_gas)[0]
-            if cand.size:
-                rows.append(int(cand[np.argmax(dens[cand])]))
-        if rows:
-            s.gas = gpx.seed_bh(s, s.gas, rows)
-            print(f"Seeded {len(rows)} black holes")
+        if gpx.bh_on and gpx.bhpar is not None and groups.ngroups:
+            to_seed = seed_black_holes(groups, groups.mass_by_type[:, 4],
+                                       groups.length_by_type[:, 5],
+                                       gpx.bhpar)
+            ngc = s.gas.ngas
+            dens = s.gas.density.cpu().numpy()
+            is_gas = (p.ptype[:ngc] == 0).cpu().numpy() \
+                & p.mask[:ngc].cpu().numpy()
+            rows = []
+            for gi in to_seed:
+                cand = np.nonzero((gid[:ngc] == gi + 1) & is_gas)[0]
+                if cand.size:
+                    rows.append(int(cand[np.argmax(dens[cand])]))
+            if rows:
+                s.gas = gpx.seed_bh(s, s.gas, rows)
+                print(f"Seeded {len(rows)} black holes")
+        if gpx.helium is not None and groups.ngroups:
+            s.gas = gpx.helium_step(s, s.gas, groups.masses, groups.cm)
+
+    write_planes_on = bool(ps.get_int("WritePlaneOn"))
+
+    def write_planes(s, a):
+        """Lensing potential planes at a snapshot FOF (plane.cpp;
+        gadget_main.py:1286-1318 of the JAX package): the NGP deposit on
+        the device, the FFT and the FITS files on the host."""
+        cuts = [float(x) for x in ps.get_string("PlaneCutPoints").split(",")
+                if x.strip()]
+        normals = [int(x) for x in ps.get_string("PlaneNormals").split(",")
+                   if x.strip()]
+        par = PlaneParams(Resolution=ps.get_int("PlaneResolution"),
+                          Thickness=ps.get_double("PlaneThickness"),
+                          CutPoints=cuts, Normals=normals or [0, 1, 2])
+        p = s.particles
+        ipos = s.output_ipos()
+
+        def deposit(normal, center, thickness):
+            counts, n_plane = plane_counts_ipos(
+                ipos, p.mask, boxsize, normal, center, thickness,
+                par.Resolution)
+            return counts.cpu().numpy(), int(n_plane)
+
+        ntot = int(p.mask.sum())
+        return write_planes_deposit(snap_counter[0] - 1, a, cp, deposit,
+                                    ntot, boxsize, outdir,
+                                    units.UnitVelocity_in_cm_per_s,
+                                    units.UnitLength_in_cm, par)
 
     def on_snapshot_with_fof(s, a):
         on_snapshot(s, a)
@@ -771,6 +855,8 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             save_fof_particles(pig, groups, p, boxsize=boxsize, atime=a)
         print(f"FOF at a={a:g}: {groups.ngroups} groups -> {pig}")
         fof_physics(s, groups)
+        if write_planes_on:
+            write_planes(s, a)
         wt.measure("FOF")
 
     sim.on_snapshot = on_snapshot_with_fof
@@ -780,15 +866,20 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     # to a * TimeBetweenSeedingSearch
     bh_enabled = has_gas and sim.gas_physics is not None \
         and sim.gas_physics.bh_on
+    # and on every PM step of the helium era (gadget_main.py:1359-1380)
+    helium_obj = sim.gas_physics.helium if sim.gas_physics else None
     next_seed_check = [atime]
     seed_factor = ps.get_double("TimeBetweenSeedingSearch")
 
     def on_pm_step(s):
         a = s.atime()
-        if not (bh_enabled and a >= next_seed_check[0]):
+        seed_due = bh_enabled and a >= next_seed_check[0]
+        he_due = helium_obj is not None and helium_obj.during(1.0 / a - 1.0)
+        if not (seed_due or he_due):
             return
         groups = run_fof(s)
-        next_seed_check[0] = a * seed_factor
+        if seed_due:
+            next_seed_check[0] = a * seed_factor
         fof_physics(s, groups)
         wt.measure("FOF")
 
@@ -889,6 +980,9 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     sim.on_step = on_step
     try:
         sim.run(max_steps=max_steps)
+        if lightcone is not None:
+            lc_path = lightcone.save(os.path.join(outdir, "LIGHTCONE"))
+            print(f"Lightcone -> {lc_path}")
     finally:
         for fd in (fd_energy, fd_cpu, fd_sfr, fd_bh, fd_bhdet):
             if fd is not None:

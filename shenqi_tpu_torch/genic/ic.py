@@ -68,8 +68,9 @@ def gaussian_field(seed: int, nmesh: int, unitary: bool = False,
     if scheme != "gadget":
         raise NotImplementedError(
             f"gaussian_field scheme={scheme!r}: only 'gadget' is ported; "
-            "'fast' draws from jax.random in the JAX package and cannot "
-            "give the same realization (ROADMAP A.12)")
+            "'fast' (jax.random.normal white noise in the JAX package, "
+            "whose threefry bits utils/threefry.py gives) is not "
+            "(ROADMAP A.12)")
     from .gadget_field import gadget_gaussian_field
     return gadget_gaussian_field(seed, nmesh, unitary=unitary,
                                  invert_phase=invert_phase

@@ -14,9 +14,12 @@ segment_sum / segment_min in the JAX package):
                         segment count of live rows
             children    contiguous in the next level's segment ids
 
-Only the shallow-key path (nlevels <= MAX_DEPTH, one 30-bit key) and
-what the neighbour traversals of FOF and the SPH IC fixed point read
-are ported (with the sorted masses).  The centres of mass, sibling
+The keys are two 30-bit words at every depth (the deep branch of
+shenqi_tpu/ops/tree.py:83-100,121-129,155-160, which the JAX package
+takes past level 10 only), for the deeper trees the velocity dispersion
+retries with; up to level 10 they give the 30-bit key's tree.  What
+the neighbour traversals of FOF, veldisp and the SPH IC fixed point
+read is ported (with the sorted masses).  The centres of mass, sibling
 pointers, canonical-leaf flags and hsml maxima of the JAX tree serve
 the gravity walks, the sequential walk, the packed-source table and the
 symmetric SPH walks; they come with those (ROADMAP A.10).
@@ -29,8 +32,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .morton import morton_key, key_to_cell, MAX_DEPTH
+from .morton import morton_key_pair, key_pair_to_cell, MAX_DEPTH
 _SENTINEL_KEY = 0xFFFFFFFF
+# the deepest tree the two-word keys resolve
+MAX_DEEP = 2 * MAX_DEPTH
 
 
 @dataclass
@@ -73,18 +78,29 @@ def build_octree(ipos, mass, alive, boxsize, nlevels: int = 8,
                  ncrit: int = 32) -> Octree:
     """Build the octree on the device the inputs lie on.  Dead particles
     sort to the end with zero mass and form their own (massless) runs
-    under a key above the 30-bit range."""
-    if nlevels > MAX_DEPTH:
-        raise NotImplementedError(
-            f"build_octree nlevels={nlevels}: only the 30-bit key path "
-            f"(nlevels <= {MAX_DEPTH}) is ported")
+    under a key above every live one."""
+    if nlevels > MAX_DEEP:
+        raise ValueError(f"build_octree nlevels={nlevels} > {MAX_DEEP}")
     dev = ipos.device
     n = ipos.shape[0]
-    keys = torch.where(alive, morton_key(ipos),
-                       torch.full_like(alive, _SENTINEL_KEY,
-                                       dtype=torch.int64))
-    order = torch.argsort(keys, stable=True)
+    # the two-word key of the JAX package's deep branch (shenqi_tpu/ops/
+    # tree.py:83-100) at every depth: both words are 30 bits, so the one
+    # int64 key hi << 30 | lo sorts exactly as lexsort((klo, khi)); dead
+    # rows carry the sentinel in both words and sort last under 2^62.
+    # A level-l prefix is key >> 3(20 - l), and hi alone decides every
+    # level up to 10, so a shallower tree is the 30-bit key's.
+    sent = torch.full_like(alive, _SENTINEL_KEY, dtype=torch.int64)
+    khi, klo = morton_key_pair(ipos)
+    khi = torch.where(alive, khi, sent)
+    klo = torch.where(alive, klo, sent)
+    keys = torch.where(alive, (khi << 30) | klo,
+                       torch.full_like(khi, 1 << 62))
+    # rows of one 30-bit key keep their input order in a tree of at most
+    # 10 levels, as the JAX package's argsort of that key leaves them
+    order = torch.argsort(keys if nlevels > MAX_DEPTH else keys >> 30,
+                          stable=True)
     keys_s = keys[order]
+    khi_s, klo_s = khi[order], klo[order]
     ipos_s = ipos[order]
     alive_s = alive[order]
     mass_s = torch.where(alive_s, mass[order].to(torch.float32), 0.0)
@@ -96,7 +112,7 @@ def build_octree(ipos, mass, alive, boxsize, nlevels: int = 8,
     segs = []
     for lv in range(nlevels + 1):
         cap = caps[lv]
-        pref = keys_s >> (3 * (MAX_DEPTH - lv))
+        pref = keys_s >> (3 * (MAX_DEEP - lv))
         first = torch.ones(n, dtype=torch.int64, device=dev)
         first[1:] = (pref[1:] != pref[:-1]).long()
         seg = torch.clamp(torch.cumsum(first, 0) - 1, max=cap - 1)
@@ -110,7 +126,7 @@ def build_octree(ipos, mass, alive, boxsize, nlevels: int = 8,
         valid = torch.arange(cap, device=dev) < nseg
         ps = torch.where(valid, ps, n)
         psc = torch.clamp(ps, 0, max(n - 1, 0))
-        cell = key_to_cell(keys_s[psc], lv)
+        cell = key_pair_to_cell(khi_s[psc], klo_s[psc], lv)
         cell_len = boxsize / (1 << lv)
         cen = (cell.to(torch.float32) + 0.5) * float(np.float32(cell_len))
 

@@ -422,7 +422,7 @@ def get_heatingcooling_rate(rho_cgs, u_cgs, helium, redshift,
     protons/cm^3 like the reference caller).  metallicity + metal_cool
     (a uv_fluctuations.MetalCoolingTable): subtract the cloudy net metal
     cooling scaled by Z (cooling_rates.cpp:1154).  extra_heat:
-    additional uniform heating in erg/s/g.  Returns (lambda_net, ne/nh).
+    additional heating in erg/s/g, a float or a per-row tensor.  Returns (lambda_net, ne/nh).
     """
     density = rho_cgs / PROTONMASS   # protons/cm^3
     nh = density * (1 - helium)
@@ -512,6 +512,9 @@ class _RateGraph:
         self.rho, self.u, self.ne = buf(1e-26), buf(1e12), buf(1.0)
         self.z = torch.zeros((), dtype=torch.float32, device=device)
         self.met = buf(0.0) if metal_cool is not None else None
+        # helium's long-mean-free-path heat, when it is per row
+        self.xh = buf(0.0) if torch.is_tensor(extra_heat) else None
+        xh_run = self.xh if self.xh is not None else extra_heat
         self.uv = (UVBG(*(buf(1e10 if f == "self_shield_dens" else 0.0)
                           for f in UVBG._fields))
                    if per_row(uvbg) else None)
@@ -521,7 +524,7 @@ class _RateGraph:
             return get_heatingcooling_rate(
                 self.rho, self.u, helium, self.z, uv_run, params,
                 ne_init=self.ne, metallicity=self.met,
-                metal_cool=metal_cool, extra_heat=extra_heat)
+                metal_cool=metal_cool, extra_heat=xh_run)
 
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -533,7 +536,7 @@ class _RateGraph:
             self.out = run()
 
     def __call__(self, rho_cgs, u_cgs, ne, redshift, metallicity=None,
-                 uvbg=None):
+                 uvbg=None, extra_heat=None):
         n = u_cgs.shape[0]
         self.rho[:n].copy_(rho_cgs)
         self.u[:n].copy_(u_cgs)
@@ -544,6 +547,8 @@ class _RateGraph:
         if self.uv is not None:
             for b, v in zip(self.uv, uvbg):
                 b[:n].copy_(v)
+        if self.xh is not None:
+            self.xh[:n].copy_(extra_heat)
         self.graph.replay()
         return self.out[0][:n].clone(), self.out[1][:n].clone()
 
@@ -566,8 +571,9 @@ def heatingcooling_rate(rho_cgs, u_cgs, helium, redshift, uvbg: UVBG,
         ne_init = rho_cgs / PROTONMASS * (1 - helium)
     nb = _bucket(u_cgs.shape[0])
     rows = per_row(uvbg)
+    xh_rows = torch.is_tensor(extra_heat)
     key = (u_cgs.device, nb, helium, tuple(vars(params).items()),
-           float(extra_heat), rows,
+           "rows" if xh_rows else float(extra_heat), rows,
            None if metal_cool is None else id(metal_cool))
     # the graph holds the host rates it was captured with
     uv_now = None if rows else tuple(uvbg)
@@ -579,7 +585,7 @@ def heatingcooling_rate(rho_cgs, u_cgs, helium, redshift, uvbg: UVBG,
                        metal_cool)
         _GRAPHS[key] = (uv_now, g)
     return g(rho_cgs, u_cgs, ne_init, redshift, metallicity,
-             uvbg if rows else None)
+             uvbg if rows else None, extra_heat if xh_rows else None)
 
 
 BISECT_ITERS = 50
@@ -594,8 +600,8 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
     Vectorized version of the reference bisection (cooling.cpp:57-135):
     geometric bracket growth by 1.1x, then fixed-count bisection.
     metallicity/metal_cool are forwarded to the rate (metal cooling);
-    `uvbg` may hold per-row tensors.  Returns (u_new_cgs, ne/nh at the
-    solution).
+    `uvbg` and `extra_heat` may hold per-row tensors.  Returns
+    (u_new_cgs, ne/nh at the solution).
     """
     u_old = torch.clamp(u_old_cgs, min=min_egyspec_cgs)
     rho_cgs, dt_s = (torch.broadcast_to(torch.as_tensor(
@@ -606,10 +612,11 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
     elif metallicity is not None:
         metallicity = torch.broadcast_to(metallicity, u_old.shape)
 
-    def lamdt(u, ne, rho=rho_cgs, dt=dt_s, met=metallicity, uv=uvbg):
+    def lamdt(u, ne, rho=rho_cgs, dt=dt_s, met=metallicity, uv=uvbg,
+              xh=extra_heat):
         ln, nebynh = heatingcooling_rate(
             rho, u, helium, redshift, uv, params, ne_init=ne,
-            metallicity=met, metal_cool=metal_cool, extra_heat=extra_heat)
+            metallicity=met, metal_cool=metal_cool, extra_heat=xh)
         return ln * dt, nebynh
 
     ne = (torch.ones_like(u_old) if ne_init is None else ne_init)
@@ -626,9 +633,11 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
     rho2, dt2 = torch.cat([rho_cgs, rho_cgs]), torch.cat([dt_s, dt_s])
     met2 = None if metallicity is None else torch.cat([metallicity] * 2)
     uv2 = _uvbg_cat(uvbg, 2)
+    xh2 = (torch.cat([extra_heat] * 2) if torch.is_tensor(extra_heat)
+           else extra_heat)
     for _ in range(BRACKET_ITERS):
         f2, ne_ = lamdt(torch.cat([hi, lo]), torch.cat([ne, ne]), rho2, dt2,
-                        met2, uv2)
+                        met2, uv2, xh2)
         f_hi, f_lo, ne2 = f2[:n], f2[n:], ne_[n:]
         need_up = heating & (hi - u_old - f_hi < 0)
         need_dn = (~heating) & (lo - u_old - f_lo > 0) \

@@ -326,7 +326,8 @@ def starformation_step(key, density, egywt_density, entropy, mass, ne,
             u_cgs, rho_cgs, dtime[cool] * cu.tt_in_s,
             1 - HYDROGEN_MASSFRAC, redshift, uvbg_take(uvbg, cool),
             coolpar, min_egyspec_cgs=min_egy_cgs, ne_init=ne[cool],
-            extra_heat=extra_heat)
+            extra_heat=(extra_heat[cool] if torch.is_tensor(extra_heat)
+                        else extra_heat))
         egy_new[cool] = u_cooled_cgs / cu.uu_in_cgs
         ne_cool[cool] = ne_c
     entropy_new = torch.where(upd, egy_new / densityfac, entropy)

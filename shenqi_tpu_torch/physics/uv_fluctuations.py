@@ -14,13 +14,17 @@ Two independent optional tables:
     grid, scaled linearly by the particle metallicity
     (cooling_uvfluc.cpp:271-335).  Clamped trilinear interpolation.
 
+  * J21CoeffFile: photo rates per unit J21 by UV spectral slope, which
+    turn the excursion set's per-particle J21 into per-row rates
+    (cooling_uvfluc.cpp get_local_UVBG_from_J21).
+
 The loaders are the JAX package's host code; the lookups are f32 torch
-ops on the caller's device (the tables are moved there once).  The
-excursion set's J21 rates (`J21Coeffs`, `uvbg_from_j21`) come with it
-(ROADMAP A.8).
+ops on the caller's device (the tables are moved there once).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -113,6 +117,55 @@ def local_uvbg(global_uvbg, zreion, redshift):
         self_shield_dens=global_uvbg.self_shield_dens
         * torch.ones_like(on),
         zreion=zreion)
+
+
+@dataclass(frozen=True)
+class J21Coeffs:
+    """Photo rates per unit J21 as a function of the UV spectral
+    slope alpha (the J21CoeffFile table, same column layout as
+    TREECOOL but keyed by alpha; cooling_rates.cpp:274-286)."""
+
+    alpha: np.ndarray
+    rates: np.ndarray      # [Na, 6] log10 of Gamma_HI..Eps_HeII
+
+    @classmethod
+    def load(cls, path: str) -> "J21Coeffs":
+        data = np.loadtxt(path)
+        return cls(alpha=data[:, 0],
+                   rates=np.log10(np.maximum(data[:, 1:7], 1e-300)))
+
+    def at(self, alpha_uv: float):
+        return [10.0 ** np.interp(alpha_uv, self.alpha,
+                                  self.rates[:, i]) for i in range(6)]
+
+
+def uvbg_from_j21(global_uvbg, j21, zreion, redshift, alpha_uv,
+                  coeffs: J21Coeffs, fbar=0.17):
+    """Per-particle UVBG from the excursion-set J21
+    (cooling_uvfluc.cpp get_local_UVBG_from_J21): rates scale
+    linearly with J21; HeII rates are zero (HeIII handled by the QSO
+    lightup model); self-shielding density follows Rahmati 2012 with
+    the local gJH0.  j21, zreion: [N] f32 tensors."""
+    gH0, gHe0, _gHep, eH0, eHe0, _eHep = (float(v)
+                                          for v in coeffs.at(alpha_uv))
+    ev = 1.60218e-12
+    j = j21.to(torch.float32)
+    gJH0 = gH0 * j
+    # Rahmati 2012 eq. 13 with the local photoionization rate; the JAX
+    # package's floor jnp.maximum(gJH0, 1e-300) is 0 in f32
+    g12 = torch.clamp(gJH0, min=0.0) / 1e-12
+    greyopac = float(np.interp(np.clip(redshift, 0, 5),
+                               [0., 1, 2, 3, 4, 5],
+                               [2.59e-18, 2.37e-18, 2.27e-18,
+                                2.15e-18, 2.02e-18, 1.94e-18]))
+    ssdens = (6.73e-3 * (greyopac / 2.49e-18) ** (-2. / 3)
+              * g12 ** (2. / 3) * (fbar / 0.17) ** (-1. / 3))
+    ssdens = torch.where(gJH0 > 0, ssdens, 1e10)
+    return type(global_uvbg)(
+        gJH0=gJH0, gJHe0=gHe0 * j, gJHep=torch.zeros_like(j),
+        epsH0=eH0 * j * ev, epsHe0=eHe0 * j * ev,
+        epsHep=torch.zeros_like(j),
+        self_shield_dens=ssdens, zreion=zreion)
 
 
 class MetalCoolingTable:

@@ -114,6 +114,9 @@ class Simulation:
     _gas_entropy_is_u: bool = False
     # every row's FOF halo mass at the last FOF (the CLI's fof_physics)
     halo_mass: object = None
+    excursion_xhi: object = None   # (volume, mass)-weighted xHI, last pass
+    # (a0, a1, crossings, host seconds) of each drift, with a lightcone
+    lightcone_log: object = None
 
     def __post_init__(self):
         if self.gravity.engine != "stencil":
@@ -703,13 +706,17 @@ class Simulation:
         gp = self.gas_physics
         if self.gas is None or gp is None or first or not (
                 gp.cooling_on or gp.sfr_on or gp.metal_return_on
-                or gp.bh_on):
+                or gp.bh_on or gp.excursion is not None):
             return
         times = self.times
         if is_pm:
             # sigma-based winds refresh vdisp once per PM step
             # (run.cpp:662-663)
             self.gas = gp.update_vdisp(self, self.gas)
+            # the excursion set's J21 at PM cadence once a FOF has given
+            # the halo masses (simulation.py:906-912 of the JAX package)
+            if self.halo_mass is not None and gp.excursion is not None:
+                self.gas = gp.excursion_step(self, self.gas, self.halo_mass)
         # sources act on ACTIVE rows with their OWN bin's dloga
         # (sfr_eff.cpp cooling_and_starformation: get_dloga_for_bin)
         hubble = float(self.CP.hubble_function(self.atime()))

@@ -23,10 +23,12 @@ the blocked octree walk, as in the JAX package.  Black holes live in the
 gas prefix too: seeding flips a gas row's ptype to BH (resumed type-5
 rows lie past the prefix), and `blackhole_step` runs accretion, thermal
 feedback, swallowing, mergers, the accretion drag and dynamical friction
-after the cooling stage.  The cooling solve takes the fluctuating UVB's per-row rates
-(`zreion_table`) and metal-line cooling (`metal_cool`).  Helium and
-excursion-set reionization are the rest of ROADMAP A.8: GasPhysics
-refuses their switches.
+after the cooling stage.  The cooling solve takes per-row UV rates (the
+excursion set's J21, else the fluctuating UVB's `zreion_table`),
+metal-line cooling (`metal_cool`) and helium's long-mean-free-path heat
+for the rows not yet HeIII.  Helium reionization (`helium_step`, QSO
+bubbles at FOF cadence) and the excursion set (`excursion_step`, J21 at
+PM-step cadence) run as in the JAX package.
 
 The random streams are the JAX package's: GasPhysics holds a threefry key
 (utils/threefry.py) seeded 42 whatever the paramfile's seed, as
@@ -37,6 +39,7 @@ splits it the same way, so each draw is the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,7 +61,8 @@ from .physics.cooling_rates import (CoolingParams, TreeCool, UVBG,
 from .physics.metal_return import metal_return_step
 from .physics.sfr import (SFRParams, CoolingUnits, starformation_step,
                           entropy_to_u)
-from .physics.uv_fluctuations import local_uvbg
+from .physics.uv_fluctuations import local_uvbg, uvbg_from_j21
+from .physics.excursion import calculate_uvbg, escape_fractions
 from .physics.veldisp import dm_velocity_dispersion
 from .physics.winds import (WindParams, WIND_SUBGRID, WIND_FIXED_EFFICIENCY,
                             winds_subgrid_step, winds_star_feedback,
@@ -70,7 +74,8 @@ from .sph.hydro import (HydroParams, HydroResult, hydro_time_factors,
 from .sph.stencil_hydro import stencil_hydro_walk, hydro_cover_patch
 from .utils import threefry
 from .utils.constants import (GAMMA, GAMMA_MINUS1, HYDROGEN_MASSFRAC,
-                              LIGHTCGS)
+                              LIGHTCGS, GRAVITY, HUBBLE)
+from .utils.units import default_units
 
 # the full-length star arrays slots_gc cuts with the particle arrays
 _STAR_ROWS = ("birth_a", "last_enrich_myr", "mass0", "total_returned",
@@ -223,18 +228,15 @@ class GasPhysics:
     bh_dynfric_on: bool = False
     zreion_table: object = None  # physics.uv_fluctuations.ZreionTable
     metal_cool: object = None    # physics.uv_fluctuations.MetalCoolingTable
-    # the rest of ROADMAP A.8: refused when on
-    helium: object = None
-    excursion: object = None
+    helium: object = None        # physics.helium_reion.HeliumReion
+    excursion: object = None     # physics.excursion.ExcursionSetParams
+    j21_coeffs: object = None    # physics.uv_fluctuations.J21Coeffs
+    excursion_zstop: float = 5.0
+    units: object = None         # utils.units.UnitSystem
     # the threefry key the source terms draw from (utils/threefry.py)
     rng_key: Optional[tuple] = None
 
     def __post_init__(self):
-        on = [n for n in ("helium", "excursion") if getattr(self, n)]
-        if on:
-            raise NotImplementedError(
-                f"GasPhysics: {', '.join(on)}: not ported yet "
-                f"(ROADMAP A.8)")
         if self.rng_key is None:
             # PRNGKey(42) whatever the run's seed, as the JAX package
             # (simulation_gas.py:294-300; ROADMAP C.4)
@@ -464,21 +466,41 @@ class GasPhysics:
         redshift = 1.0 / atime - 1.0
         uvbg = (self.treecool.uvbg(redshift, self.coolpar)
                 if self.treecool else UVBG())
-        if self.zreion_table is not None:
+        if (self.excursion is not None and self.j21_coeffs is not None
+                and redshift > self.excursion_zstop):
+            # the excursion set's per-row J21 UVB (simulation_gas.py:
+            # 703-711 of the JAX package): it takes precedence over the
+            # zreion table
+            uvbg = uvbg_from_j21(uvbg, gas.local_j21, gas.zreion_p,
+                                 redshift, self.excursion.AlphaUV,
+                                 self.j21_coeffs,
+                                 fbar=self.coolpar.fBar
+                                 if self.coolpar else 0.17)
+        elif self.zreion_table is not None:
             # fluctuating UVB: per-row rates gated on z_reion
             # (simulation_gas.py:713-719 of the JAX package)
             uvbg = local_uvbg(uvbg, self.zreion_table.zreion(
                 ipos_to_float(p.ipos[:ng], sim.boxsize)), redshift)
+        # HeII long-mean-free-path heating for the gas not yet HeIII
+        # (simulation_gas.py:720-730)
+        extra_heat = 0.0
+        if self.helium is not None and self.helium.during(redshift):
+            h0 = sim.CP.HubbleParam * HUBBLE
+            rho_crit_b = (3 * h0 * h0 / (8 * np.pi * GRAVITY)
+                          * sim.CP.OmegaBaryon)
+            lm = self.helium.lmfp_heating_per_gram(redshift, rho_crit_b)
+            extra_heat = torch.where(gas.heiii, 0.0,
+                                     float(np.float32(lm)))
         if not self.sfr_on:
             return self._pure_cooling(gas, gas_alive, dtime, a3inv,
-                                      redshift, uvbg), 0
+                                      redshift, uvbg, extra_heat), 0
 
         res = starformation_step(
             self.next_key(), gas.density, gas.egy_wt_density, gas.entropy,
             p.mass[:ng], gas.ne, gas.metallicity, gas.generation, dtime,
             a3inv, redshift, uvbg, self.sfrpar, self.coolpar,
             self.coolunits, gas_alive, gradrho_mag=gas.gradrho_mag,
-            hsml=p.hsml[:ng], pids=p.id_lo[:ng])
+            hsml=p.hsml[:ng], pids=p.id_lo[:ng], extra_heat=extra_heat)
         gas = gas.replace(entropy=res.entropy, ne=res.ne,
                           metallicity=res.metallicity, sfr=res.sfr)
         # sfr.txt's inputs and the conversion's counts: one host pull
@@ -507,7 +529,8 @@ class GasPhysics:
                               a3inv, nstars)
         return gas, nstars
 
-    def _pure_cooling(self, gas, gas_alive, dtime, a3inv, redshift, uvbg):
+    def _pure_cooling(self, gas, gas_alive, dtime, a3inv, redshift, uvbg,
+                      extra_heat=0.0):
         """Radiative cooling through the implicit solver, without star
         formation, with the metal-line term when a table is loaded
         (simulation_gas.py:877-900 of the JAX package); the solver runs on
@@ -529,7 +552,9 @@ class GasPhysics:
             dtime[sel] * cu.tt_in_s, 1 - HYDROGEN_MASSFRAC, redshift,
             uvbg_take(uvbg, sel), self.coolpar, min_egyspec_cgs=min_egy,
             ne_init=gas.ne[sel], metallicity=gas.metallicity[sel],
-            metal_cool=self.metal_cool)
+            metal_cool=self.metal_cool,
+            extra_heat=(extra_heat[sel] if torch.is_tensor(extra_heat)
+                        else extra_heat))
         ent = gas.entropy.clone()
         ne_all = gas.ne.clone()
         ent[sel] = (u_cgs / cu.uu_in_cgs) / torch.clamp(dfac[sel],
@@ -722,6 +747,84 @@ class GasPhysics:
             sim.boxsize, sim.atime(), nlevels=sim.gravity.tree_nlevels,
             ncrit=sim.gravity.tree_ncrit)
         return gas.replace(vdisp=torch.where(gas_alive, sigma, gas.vdisp))
+
+    # ---------- excursion-set reionization (uvbg.cpp analog) -------
+    def excursion_step(self, sim, gas: GasState, halo_mass) -> GasState:
+        """One find_HII_bubbles pass (PM-step cadence while redshift >
+        ExcursionSetZStop; simulation_gas.py:1047-1081 of the JAX
+        package).  halo_mass: [N] per-row FOF halo mass (0 outside
+        halos), for the escape fractions.  Each gas row keeps the
+        maximum J21 it has read (uvbg.cpp:461-472) and records z_reion
+        at its first ionization."""
+        if self.excursion is None:
+            return gas
+        atime = sim.atime()
+        redshift = 1.0 / atime - 1.0
+        if redshift <= self.excursion_zstop:
+            return gas
+        t0 = time.perf_counter()
+        p = sim.particles
+        ng = gas.ngas
+        units = self.units or default_units()
+        # halo_mass is sized at the last FOF: rows a capacity growth added
+        # since hold no FOF mass (what the next FOF gives them), rows
+        # slots_gc cut were dead.  The JAX package fails on the shape
+        # here (ROADMAP C.4)
+        halo_mass = halo_mass[:p.n]
+        halo_mass = torch.nn.functional.pad(
+            halo_mass, (0, p.n - halo_mass.shape[0]))
+        fesc = escape_fractions(halo_mass.to(torch.float32),
+                                self.excursion, units.UnitMass_in_g,
+                                sim.CP.HubbleParam)
+        sfr = torch.zeros(p.n, dtype=torch.float32, device=p.device)
+        sfr[:ng] = gas.sfr
+        res = calculate_uvbg(p.ipos, p.mass, p.ptype, sfr, fesc, atime,
+                             sim.CP, units, sim.boxsize, self.excursion,
+                             mask=p.mask)
+        j21g = res.j21_particles[:ng]
+        newj = torch.maximum(gas.local_j21, j21g)
+        newz = torch.where((gas.zreion_p < 0) & (j21g > 0),
+                           float(np.float32(redshift)), gas.zreion_p)
+        sim.excursion_xhi = tuple(torch.stack(
+            [res.vol_weighted_xhi, res.mass_weighted_xhi]).tolist())
+        # the pull above waited for the pass: its seconds, for the logs
+        self.last_excursion_s = time.perf_counter() - t0
+        return gas.replace(local_j21=newj, zreion_p=newz)
+
+    # ---------- HeII reionization (cooling_qso_lightup analog) -----
+    def helium_step(self, sim, gas: GasState, group_masses,
+                    group_cm) -> GasState:
+        """QSO bubble HeIII ionization at FOF cadence
+        (do_heiii_reionization; simulation_gas.py:1083-1110 of the JAX
+        package): host numpy over the gas, with the bubbles drawn from a
+        RandomState seeded by randint(next_key(), (), 0, 2**31), the key
+        taken at the same place of the stream as the JAX package takes
+        it.  group_masses/group_cm: the FOF catalogue's."""
+        if self.helium is None or self.coolunits is None:
+            return gas
+        atime = sim.atime()
+        redshift = 1.0 / atime - 1.0
+        if not self.helium.during(redshift):
+            return gas
+        p = sim.particles
+        ng = gas.ngas
+        gas_alive = ((p.mask[:ng] & (p.ptype[:ng] == GAS)).cpu().numpy())
+        pos = ipos_to_float(p.ipos[:ng], sim.boxsize).cpu().numpy()
+        rng = np.random.RandomState(
+            threefry.randint(self.next_key(), 0, 2 ** 31))
+        nev = len(self.helium.events)
+        heiii, ent, nion = self.helium.turn_on_quasars(
+            rng, atime, group_masses, group_cm, pos,
+            gas.density.cpu().numpy(), gas_alive, gas.heiii.cpu().numpy(),
+            gas.entropy.cpu().numpy(), sim.boxsize,
+            self.coolunits.uu_in_cgs)
+        self.last_helium = {"a": atime, "bubbles":
+                            len(self.helium.events) - nev, "ionized": nion}
+        if nion == 0:
+            return gas
+        dev = gas.entropy.device
+        return gas.replace(heiii=torch.from_numpy(heiii).to(dev),
+                           entropy=torch.from_numpy(ent).to(dev))
 
     # ---------- black holes (blackhole.cpp analog) ----------
     def seed_bh(self, sim, gas: GasState, rows) -> GasState:

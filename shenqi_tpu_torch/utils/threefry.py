@@ -91,3 +91,28 @@ def mulmod32(a, b):
     product reaches 2^63."""
     hi = ((a >> 16) * b) & 0xFFFF
     return ((hi << 16) + (a & 0xFFFF) * b) & _M32
+
+
+def randint(key: tuple, minval: int, maxval: int) -> int:
+    """jax.random.randint(key, (), minval, maxval) for the default int32
+    (jax/_src/random.py `_randint`): two 32-bit words from the key's two
+    halves, reduced modulo the span with uint32 arithmetic that wraps.
+    A maxval past the int32 range is clipped to its maximum and the span
+    widened by one."""
+    i32max = 2 ** 31 - 1
+    k1, k2 = split(key)
+    hi, lo = bits(k1), bits(k2)
+    out_of_range = maxval > i32max
+    minval = min(max(minval, -2 ** 31), i32max)
+    maxval = min(max(maxval, -2 ** 31), i32max)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    if out_of_range and maxval > minval:
+        span = (span + 1) & _M32
+
+    def rem(x):                 # XLA: an unsigned x % 0 is x
+        return x % span if span else x
+
+    mult = rem(rem(2 ** 16) * rem(2 ** 16) & _M32)
+    off = rem((rem(hi) * mult + rem(lo)) & _M32)
+    v = (minval + off) & _M32
+    return v - 2 ** 32 if v > i32max else v

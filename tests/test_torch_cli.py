@@ -215,9 +215,10 @@ def test_resume_and_hci_stop(ics, tmp_path):
 
 def test_unported_refused(ics, tmp_path):
     """What the port does not run yet is refused, naming its ROADMAP
-    item: gas particles with HydroOn and an unported subgrid switch on
-    (HeliumReionizationOn, A.8) and RestartFlag 99 (A.10).  The paramfile
-    leaves SplitGravityTimestepsOn at its default."""
+    item: --mesh (A.9), RestartFlag 99 (A.10) and the erfc short-range
+    window (A.12).  The paramfile (gas particles with HydroOn, and
+    HeliumReionizationOn, which now runs) leaves SplitGravityTimestepsOn
+    at its default."""
     od = tmp_path / "o"
     od.mkdir()
     n, box = 64, 64000.0
@@ -237,11 +238,13 @@ def test_unported_refused(ics, tmp_path):
     pf.write_text(_GADGET.replace("HydroOn = 0", "HydroOn = 1").format(
         ic=od / "IC_gas", out=od, a=0.125, fof=0, nmesh=16)
         + "HeliumReionizationOn = 1\n")
-    with pytest.raises(NotImplementedError,
-                       match="HeliumReionizationOn.*A.8"):
-        tg.run_gadget(str(pf), device="cpu")
-    with pytest.raises(NotImplementedError, match="RestartFlag 99"):
+    with pytest.raises(NotImplementedError, match="--mesh.*A.9"):
+        tg.run_gadget(str(pf), mesh_devices=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="RestartFlag 99.*A.10"):
         tg.run_gadget(str(pf), restart_flag=99, device="cpu")
+    pf.write_text(pf.read_text() + "ShortRangeForceWindowType = erfc\n")
+    with pytest.raises(NotImplementedError, match="erfc.*A.12"):
+        tg.run_gadget(str(pf), device="cpu")
 
 
 def _nu_params(tmp, ic, out):

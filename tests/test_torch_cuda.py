@@ -579,3 +579,71 @@ def test_cooling_graph_metal_rows_equals_eager():
     nc = nc.double().numpy()
     assert (np.abs(nk.cpu().numpy() - nc)
             <= np.maximum(1e-4 * nc, 2.4e-7)).all()
+
+
+@pytest.mark.cuda
+def test_plane_counts_on_card_equals_cpu():
+    """plane_counts_ipos on the card: the integer counts and n_plane
+    bit-identical to the CPU's, for a thin slab, one that wraps the box
+    edge and the whole box (positions of 2^31 and above included)."""
+    dev = _card()
+    from shenqi_tpu_torch.physics.plane import plane_counts_ipos
+    rng = np.random.RandomState(7)
+    ipos = rng.randint(0, 2 ** 32, (400000, 3), dtype=np.uint64).astype(
+        np.uint32)
+    alive = rng.rand(len(ipos)) < 0.9
+    for normal, center, thick in ((0, 60.0, 50.0), (1, 5.0, 30.0),
+                                  (2, 125.0, 250.0)):
+        c0, n0 = plane_counts_ipos(_t(ipos, "cpu"), torch.from_numpy(alive),
+                                   250.0, normal, center, thick, 256)
+        c1, n1 = plane_counts_ipos(_t(ipos, dev),
+                                   torch.from_numpy(alive).to(dev), 250.0,
+                                   normal, center, thick, 256)
+        assert torch.equal(c1.cpu(), c0) and int(n1) == int(n0) > 0
+
+
+@pytest.mark.cuda
+def test_excursion_pass_on_card_equals_cpu():
+    """calculate_uvbg at UVBGdim 64 on the card (cuFFT) against the CPU:
+    the ionized cells the same in 99.9% of the cells, J21 within 1e-4 of
+    its max where both ionize alike, the global xHI within 1e-3, the gas
+    rows' J21 within 1e-4 of its max on 95% of them
+    (tests/test_torch_excursion.py's limits)."""
+    dev = _card()
+    from shenqi_tpu_torch.cosmology.background import Cosmology
+    from shenqi_tpu_torch.physics.excursion import (ExcursionSetParams,
+                                                    calculate_uvbg)
+    from shenqi_tpu_torch.utils.units import default_units
+    cp = Cosmology(Omega0=0.3, OmegaLambda=0.7, OmegaBaryon=0.05,
+                   HubbleParam=0.7, RadiationOn=0, CMBTemperature=0.0)
+    cp.init(0.1, default_units())
+    rng = np.random.RandomState(0)
+    box, n_dm, n_star, n_gas = 20000.0, 200000, 20000, 20000
+    pos = np.vstack([rng.uniform(0.1 * box, 0.3 * box, (n_gas, 3)),
+                     rng.uniform(0, box, (n_dm, 3)),
+                     rng.uniform(0.1 * box, 0.3 * box, (n_star, 3))])
+    m_dm = cp.Omega0 * cp.RhoCrit * box ** 3 / n_dm
+    mass = np.concatenate([np.full(n_gas, 0.05 * m_dm), np.full(n_dm, m_dm),
+                           np.full(n_star, 0.05 * m_dm)]).astype(np.float32)
+    ptype = np.concatenate([np.zeros(n_gas, np.int8), np.ones(n_dm, np.int8),
+                            np.full(n_star, 4, np.int8)])
+    fesc = np.where(ptype == 4, 1.0, 0.0).astype(np.float32)
+    ip = (pos / box * 2 ** 32).astype(np.uint64).astype(np.uint32)
+    par = ExcursionSetParams(UVBGdim=64, ReionRBubbleMax=4000.0,
+                             ReionRBubbleMin=400.0)
+    res = [calculate_uvbg(_t(ip, d), torch.from_numpy(mass).to(d),
+                          torch.from_numpy(ptype).to(d),
+                          torch.zeros(len(ip), device=d),
+                          torch.from_numpy(fesc).to(d), 0.125, cp,
+                          default_units(), box, par)
+           for d in ("cpu", dev)]
+    x0, x1 = res[0].xhi_grid.numpy(), res[1].xhi_grid.cpu().numpy()
+    j0, j1 = res[0].j21_grid.numpy(), res[1].j21_grid.cpu().numpy()
+    assert (x0 == 0).any() and ((x0 == 0) == (x1 == 0)).mean() >= 0.999
+    both = (x0 == 0) & (x1 == 0)
+    assert (np.abs(j0 - j1)[both] <= 1e-4 * j0.max()).mean() >= 0.999
+    assert abs(float(res[0].vol_weighted_xhi)
+               - float(res[1].vol_weighted_xhi)) <= 1e-3
+    p0 = res[0].j21_particles.numpy()[:n_gas]
+    p1 = res[1].j21_particles.cpu().numpy()[:n_gas]
+    assert (np.abs(p0 - p1) <= 1e-4 * p0.max()).mean() >= 0.95

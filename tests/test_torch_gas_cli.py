@@ -27,12 +27,12 @@ and CLASS-layout transfer table.
     snapshot that restores the star state bit for bit in both packages
     and steps on;
   * (black holes on the 16^3 version of that IC: test_torch_bh_cli.py)
-  * the switches of ported subgrid stages run, and so do a
-    MetalCoolFile with MetalCoolingOn and a UVFluctuationFile (tables
-    written by chip_smoke's `_metal_cool_table` and `_zreion_table`; the gas
-    state after two steps within 1e-4 of the JAX package's max); the
-    rest of ROADMAP A.8 (helium and excursion-set reionization)
-    refused, each by name.
+  * every subgrid switch runs (helium without a ReionHistFile loads no
+    history, as in the JAX CLI; the reionization runs with their tables
+    are test_torch_reion_cli.py's), and so do a MetalCoolFile with
+    MetalCoolingOn and a UVFluctuationFile (tables written by
+    chip_smoke's `_metal_cool_table` and `_zreion_table`; the gas state
+    after two steps within 1e-4 of the JAX package's max).
 """
 
 import shutil
@@ -62,8 +62,7 @@ BOX = 128.0
 SUBGRID = ("CoolingOn", "StarformationOn", "WindOn", "BlackHoleOn",
            "MetalReturnOn", "QSOLightupOn", "HeliumReionizationOn",
            "ExcursionSetReionOn")
-PORTED = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn",
-          "BlackHoleOn")
+PORTED = SUBGRID
 STAR_SMALL = ("CoolingOn", "StarformationOn", "WindOn", "MetalReturnOn")
 
 
@@ -214,9 +213,8 @@ def test_restart_restores_gas_state(runs, monkeypatch):
 
 @pytest.mark.parametrize("switch", SUBGRID)
 def test_subgrid_switch_refused(runs, switch):
-    """A gas run with a switch of an unported subgrid stage on is refused,
-    naming the switch and ROADMAP A.8 (GasPhysics refuses its own
-    switches too); with a ported stage's switch on, the run proceeds."""
+    """Each subgrid switch, once refused, now runs: two steps of the gas
+    run with it on (GasPhysics takes helium and the excursion set)."""
     tmp, ic, _ = runs
     pf = tmp / f"refuse_{switch}.gadget"
     text = _GADGET_GAS.format(ic=ic, out=tmp / f"refused_{switch}",
@@ -226,18 +224,21 @@ def test_subgrid_switch_refused(runs, switch):
     else:
         text += f"{switch} = 1\n"
     pf.write_text(text)
-    if switch in PORTED:
-        sim = tg.run_gadget(str(pf), max_steps=2, device="cpu")
-        assert sim.atime() > 0.01
-        assert getattr(sim.gas_physics, {
+    assert switch in PORTED
+    sim = tg.run_gadget(str(pf), max_steps=2, device="cpu")
+    assert sim.atime() > 0.01
+    gp = sim.gas_physics
+    if switch in ("QSOLightupOn", "HeliumReionizationOn"):
+        # no ReionHistFile: no history is loaded (gadget_main.py:993-1008)
+        assert gp.helium is None
+        assert GasPhysics(helium=True).helium is True
+    elif switch == "ExcursionSetReionOn":
+        assert gp.excursion is not None and gp.j21_coeffs is None
+    else:
+        assert getattr(gp, {
             "CoolingOn": "cooling_on", "StarformationOn": "sfr_on",
             "WindOn": "winds_on", "MetalReturnOn": "metal_return_on",
             "BlackHoleOn": "bh_on"}[switch])
-        return
-    with pytest.raises(NotImplementedError, match=f"{switch}.*A\\.8"):
-        tg.run_gadget(str(pf), device="cpu")
-    with pytest.raises(NotImplementedError, match="helium.*A.8"):
-        GasPhysics(helium=True)
 
 
 @pytest.mark.parametrize("line", ["MetalCoolFile = x.hdf5\nMetalCoolingOn = 1",

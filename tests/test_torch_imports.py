@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
                  "sph.stencil_hydro", "utils.threefry",
                  "physics.cooling_rates", "physics.sfr", "physics.winds",
                  "physics.veldisp", "physics.metal_return",
-                 "physics.blackhole", "physics.uv_fluctuations"):
+                 "physics.blackhole", "physics.uv_fluctuations",
+                 "physics.helium_reion", "physics.excursion",
+                 "physics.lightcone", "physics.plane", "genic.glass"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

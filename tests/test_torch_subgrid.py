@@ -22,7 +22,9 @@ equal but for them); entropy, density and hsml within 1e-3 relative for
 >= 99% of the gas rows; metallicity and the star bookkeeping within 1e-4
 relative of their max; the wind-kicked rows identical; total mass equal
 to 1e-9.  The device conversion and the host conversion give the same
-rows; `_grow_star_capacity` then `slots_gc` keep the state.
+rows; `_grow_star_capacity` then `slots_gc` keep the state, and an
+excursion pass after either reads the last FOF's halo mass at the new
+row count.
 """
 
 import dataclasses
@@ -48,6 +50,7 @@ from shenqi_tpu_torch.core.timeline import Timeline as TTimeline
 from shenqi_tpu_torch.cosmology.background import Cosmology as TCosmology
 from shenqi_tpu_torch.physics import (cooling_rates as tcr, sfr as tsfr,
                                       winds as tw, metal_return as tmr)
+from shenqi_tpu_torch.physics.excursion import ExcursionSetParams
 from shenqi_tpu_torch.simulation import Simulation as TSimulation
 from shenqi_tpu_torch.simulation_gas import GasPhysics as TGasPhysics
 from shenqi_tpu_torch.sph.kernels import QUINTIC
@@ -309,3 +312,36 @@ def test_grow_capacity_and_slots_gc(sub_steps):
     for k, v in _state(ts).items():
         assert torch.equal(v, before[k][:v.shape[0]]), k
     ts.particles, ts.gas = saved
+
+
+@pytest.mark.parametrize("change", ["grow", "slots_gc"])
+def test_excursion_after_capacity_change(sub_steps, change):
+    """An excursion pass after the particle arrays grew or shrank since
+    the FOF that sized halo_mass: rows added since hold no halo mass and
+    rows cut were dead, so the pass equals one given halo_mass padded
+    with zeros or cut to the rows (the JAX package fails on the shape,
+    ROADMAP C.4).  The photon budget is raised so that cells ionize."""
+    _, ts, _, _ = sub_steps
+    saved = (ts.particles, dataclasses.replace(ts.gas))
+    gp = dataclasses.replace(
+        ts.gas_physics, excursion_zstop=0.0,
+        excursion=ExcursionSetParams(UVBGdim=16, ReionNionPhotPerBary=4e6))
+    if change == "slots_gc":
+        gp._grow_star_capacity(ts, ts.gas, 5000)
+    p = ts.particles
+    # the FOF's halo mass, at the size the arrays had then
+    hm = torch.where(p.mask & ((p.ptype == 0) | (p.ptype == 4)), 0.5, 0.0)
+    n = p.n
+    if change == "grow":
+        gp._grow_star_capacity(ts, ts.gas, 5000)
+    else:
+        gp.slots_gc(ts, ts.gas)
+    m = ts.particles.n
+    assert m != n
+    want = torch.nn.functional.pad(hm, (0, max(m - n, 0)))[:m]
+    got = gp.excursion_step(ts, ts.gas, hm)
+    ref = gp.excursion_step(ts, ts.gas, want)
+    ts.particles, ts.gas = saved
+    assert (ref.local_j21 > 0).any()
+    assert torch.equal(got.local_j21, ref.local_j21)
+    assert torch.equal(got.zreion_p, ref.zreion_p)

@@ -2,7 +2,8 @@
 against jax.random (threefry, `jax_threefry_partitionable` on): the
 split chain from PRNGKey(42) over 64 steps, split into three, the scalar
 bits of a key, and `bits` and `uniform` of shape (300, 17), the latter
-also drawn a block of rows at a time: all bit-identical."""
+also drawn a block of rows at a time, and `randint` over 300 keys: all
+bit-identical."""
 
 import numpy as np
 import pytest
@@ -61,3 +62,32 @@ def test_mulmod32():
     got = tf.mulmod32(torch.from_numpy(a.astype(np.int64)),
                       torch.from_numpy(b.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def jax_randint(key, lo, hi):
+    """jax.random.randint(key, (), lo, hi).  With x64 off JAX 0.9 refuses
+    the Python int 2**31 as an int32 argument (OverflowError), so the
+    JAX package's helium_step (simulation_gas.py:1100-1101) cannot run
+    as written; a uint32 maxval runs `_randint` itself, which clips
+    2**31 to the int32 maximum and widens the span by one."""
+    if hi == 2 ** 31:
+        hi = np.uint32(hi)
+    return int(jax.random.randint(key, (), lo, hi))
+
+
+def test_randint_python_2_31_overflows():
+    with pytest.raises(OverflowError):
+        jax.random.randint(jax.random.PRNGKey(0), (), 0, 2 ** 31)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 2 ** 31), (0, 1000), (-7, 2 ** 31 - 1),
+                                   (5, 5)])
+def test_randint(lo, hi):
+    """jax.random.randint(key, (), lo, hi) over 300 keys of the split
+    chain from PRNGKey(42): bit-identical (helium's QSO bubble seed is
+    randint(next_key(), (), 0, 2**31))."""
+    jk, tk = jax.random.PRNGKey(42), tf.PRNGKey(42)
+    for _ in range(300):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = tf.split(tk)
+        assert jax_randint(jsub, lo, hi) == tf.randint(tsub, lo, hi)
