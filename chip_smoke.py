@@ -42,6 +42,23 @@ BUDGET_S for the whole run, the kernel build included:
           output; every launch shape the run gave the pair kernel
           against the plain version, a second launch's bits and its
           bound, as in `kernel`
+  mesh    gadget_main --mesh 1 on cli's ICs and paramfile: the slab run
+          (exchange, pencil-FFT PM, slab stencil, slab FOF, sharded
+          snapshot) on one spawned rank through NCCL (gloo in the
+          rehearsal); the backend, per step the exchange's rows, each
+          force call's targets, ghosts and seconds, the stages, the
+          collectives, seconds per step beside cli's; checks against
+          cli's output: the step count, positions by ID within 2e-5 of
+          the box, every P(k) file to rtol 1e-4; then gadget_main
+          --mesh 1 RestartFlag 2 from cli's clustered snapshot with
+          halos, whose first force pass and snapshot write the slab FOF's
+          PIG through the run's own on_snapshot, against the
+          single-device FOF of that snapshot on a tree of the run's depth
+          (group count, masses to rtol 5e-3, under 10% of lengths
+          differing), cli's RestartFlag 3 PIG of it printed beside
+          (ROADMAP C.6); every launch shape the two runs gave
+          the pair kernel against the plain version, as in `cli`; and
+          --mesh 2 refused on a one-card host
   dmsmall dm-small as its paramfile stands but for its end: 64^3, box
           64000 kpc/h, mesh 128, z = 9 to a = 0.15 (0.25 in dm-small)
           with FOF at 0.15 (the EH table for its CLASS one); the bins
@@ -151,11 +168,10 @@ BUDGET_S for the whole run, the kernel build included:
           shape against the plain version.  Printed: the lightcone's host
           seconds per drift
   profile where the time goes in one full force pass at that size
-          (host-clock stages, then torch.profiler device time by kernel
-          and the device's busy share); outside the counted main path
+          (host-clock stages); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars`, `bh`, `reion` and
+`mesh`, `slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars`, `bh`, `reion` and
 `lc`, with the row of its largest launch shape),
 the JSON kernel table (the `cli` run's launches and largest shape), the
 card's name and power limit, and the run's result as one JSON object.
@@ -805,7 +821,10 @@ class Smoke:
         self.reion_launches, self.reion_row = 0, {}
         self.n_lc = 16 if rehearsal else 64
         self.lc_launches, self.lc_row = 0, {}
-        self.stars_dir = self.bh_dir = None
+        self.stars_dir = self.bh_dir = self.cli_dir = None
+        # the cli run's paramfile, output, steps and seconds, for `mesh`
+        self.cli_run = None
+        self.mesh_launches, self.mesh_row = 0, {}
         # the reionization tables, written by tools/ from the start on
         self.table_dir, self.table_procs = None, []
         self.heii = self.j21 = None
@@ -854,7 +873,8 @@ class Smoke:
             if pr.poll() is None:
                 pr.kill()
                 pr.communicate()
-        for d in (self.table_dir, self.stars_dir, self.bh_dir):
+        for d in (self.table_dir, self.stars_dir, self.bh_dir,
+                  self.cli_dir):
             if d:
                 shutil.rmtree(d, ignore_errors=True)
 
@@ -1269,13 +1289,10 @@ class Smoke:
     def cli(self):
         """The main path as its users run it: genic_main, then gadget_main
         RestartFlag 4, 2 and 3, on paramfiles written into a temporary
-        directory that is removed at the end."""
+        directory that the `mesh` phase reuses and close() removes."""
         import tempfile
-        tmp = tempfile.mkdtemp(prefix="shenqi_cli_")
-        try:
-            self._cli(tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        self.cli_dir = tempfile.mkdtemp(prefix="shenqi_cli_")
+        self._cli(self.cli_dir)
 
     def _cli(self, tmp):
         import os
@@ -1392,6 +1409,8 @@ class Smoke:
             raise SmokeFailure("the CLI default did not run hierarchically")
         self._check_calls("cli", rec)
         self._check_momentum("cli", sim, p0)
+        self.cli_run = {"pp": pp, "out": out, "steps": sim.step_count,
+                        "seconds": t2, "ic": os.path.join(tmp, "IC", "IC")}
         del sim
         self.cli_row = self._check_shapes(rec.shapes, "cli")
         del rec
@@ -1495,6 +1514,200 @@ class Smoke:
         say(phase, f"|dP| / sum m|v| = {dp / smv:.3e} (limit 1e-3)")
         if not dp < 1e-3 * smv:
             raise SmokeFailure(f"momentum not conserved in the {phase} run")
+
+    # --------------------------------------------------------------- mesh
+    def mesh(self):
+        """gadget_main --mesh 1 on cli's ICs and paramfile: the slab loop
+        on one spawned rank through NCCL (gloo in the rehearsal), held to
+        cli's single-device output; then, in the same rank, the --mesh
+        run from cli's clustered snapshot for the catalogue
+        (_mesh_fof_clustered); then --mesh 2 on this one-card host must
+        raise."""
+        import functools
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        run = self.cli_run
+        out = os.path.join(self.cli_dir, "mesh_output")
+        pp = os.path.join(self.cli_dir, "p_mesh.gadget")
+        with open(run["pp"]) as f:
+            text = f.read()
+        with open(pp, "w") as f:
+            f.write(text.replace(run["out"], out))
+        # the clustered run's output directory holds a link to cli's
+        # PART_007, its start (RestartFlag 2, SnapNum 7)
+        out_fof = os.path.join(self.cli_dir, "mesh_fof_output")
+        pp_fof = os.path.join(self.cli_dir, "p_mesh_fof.gadget")
+        os.makedirs(out_fof)
+        os.symlink(os.path.join(run["out"], "PART_007"),
+                   os.path.join(out_fof, "PART_007"))
+        with open(pp_fof, "w") as f:
+            f.write(text.replace(run["out"], out_fof))
+        dev = "cpu" if self.rehearsal else None      # None: the card
+        t = time.perf_counter()
+        summ = gadget_main.run_gadget(
+            pp, 2, mesh_devices=1, device=dev,
+            rank_hook=functools.partial(_mesh_rank_hook, then=(pp_fof, 7)),
+            mesh_timeout=300.0,
+            join_timeout=max(self.budget - elapsed(), 60.0))
+        t_mesh = time.perf_counter() - t
+        rec = torch.load(os.path.join(out, "mesh_rank0.pt"),
+                         map_location=self.dev, weights_only=False)
+        self.mesh_launches = rec["launches"]
+        nsteps = summ["step_count"]
+        say("mesh", f"gadget_main --mesh 1: backend {summ['backend']}, "
+            f"world size {summ['world']}; {t_mesh:.2f} s in all (spawn, "
+            f"process group, the rank's set-up and run {rec['run_s']:.2f} s,"
+            f" then the clustered run in the same rank), {nsteps} steps; p2p_blocked launches {self.mesh_launches}; "
+            f"collectives " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                        sorted(rec["counts"].items())))
+        steps = _cpu_steps(os.path.join(out, "cpu.txt"))
+        steps.append((summ["atime"], rec["last_stages"]))
+        xch = {st_: (rows, sec) for st_, rows, sec in rec["exchange_log"]}
+        for i, (a, stages) in enumerate(steps):
+            calls = [c for c in rec["force_log"] if c[0] == i]
+            rows, sec = xch.get(i, (0, 0.0))
+            say("mesh", f"  {'step ' + str(i) if i < len(steps) - 1 else 'end'}"
+                f" at a={a:.5f}: exchange sent {rows} rows in {sec:.4f} s; "
+                f"force calls " + (", ".join(
+                    f"{k} {n} targets + {g} ghosts {s_:.3f} s"
+                    for _, k, n, g, s_ in calls) or "none") + "; stages "
+                + ", ".join(f"{k} {v:.3f} s"
+                            for k, v in sorted(stages.items())))
+        per = rec["run_s"] / max(nsteps, 1)
+        say("mesh", f"seconds per step: --mesh 1 {per:.3f} (set-up "
+            f"included) against cli's {run['seconds'] / max(run['steps'], 1):.3f}"
+            f" (the whole gadget_main call over its steps)")
+        if nsteps != run["steps"]:
+            raise SmokeFailure(f"--mesh 1 took {nsteps} steps, cli "
+                               f"{run['steps']}")
+        if not summ["hierarchical"]:
+            raise SmokeFailure("--mesh 1 did not run hierarchically")
+        if not self.rehearsal and self.mesh_launches <= 0:
+            raise SmokeFailure("the --mesh 1 run launched no pair kernel")
+        # the outputs against cli's: positions by ID (test_slab_sim.py's
+        # 2e-5 of the box), P(k) to rtol 1e-4
+        h1, b1 = read_snapshot(os.path.join(run["out"], "PART_000"))
+        h2, b2 = read_snapshot(os.path.join(out, "PART_000"))
+        o1, o2 = np.argsort(b1[1]["ID"]), np.argsort(b2[1]["ID"])
+        if not np.array_equal(b1[1]["ID"][o1], b2[1]["ID"][o2]):
+            raise SmokeFailure("--mesh 1 wrote other IDs than cli")
+        box = h1.BoxSize
+        d = np.abs(b1[1]["Position"][o1] - b2[1]["Position"][o2])
+        dpos = float(np.minimum(d, box - d).max() / box)
+        pks = sorted(f_ for f_ in os.listdir(run["out"])
+                     if f_.startswith("powerspectrum-"))
+        prel = 0.0
+        for f_ in pks:
+            p1 = np.loadtxt(os.path.join(run["out"], f_))
+            p2 = np.loadtxt(os.path.join(out, f_))
+            if p1.shape != p2.shape or not np.array_equal(p1[:, 2], p2[:, 2]):
+                raise SmokeFailure(f"--mesh 1's {f_} has other bins")
+            prel = max(prel, float(np.max(np.abs(p2[:, [0, 1]] / p1[:, [0, 1]]
+                                                 - 1))))
+        say("mesh", f"against cli: positions within {dpos:.3e} of the box "
+            f"(limit 2e-5), {len(pks)} P(k) files within rtol {prel:.3e} "
+            f"(limit 1e-4)")
+        if not dpos < 2e-5:
+            raise SmokeFailure(f"--mesh 1 positions off by {dpos:.3e}")
+        if not (len(pks) and prel < 1e-4):
+            raise SmokeFailure(f"--mesh 1 P(k) off by {prel:.3e}")
+        shapes = rec["shapes"]
+        del rec
+        # the run forms no FOF group by a = 0.11: the --mesh catalogue is
+        # checked on the run from cli's clustered PART_007 in the same rank
+        for key, (n, a_, kw) in self._mesh_fof_clustered(out_fof).items():
+            shapes.setdefault(key, [0, a_, kw])[0] += n
+        self.mesh_row = self._check_shapes(shapes, "mesh")
+        del shapes
+        if not self.rehearsal:
+            try:
+                gadget_main.run_gadget(pp, 2, mesh_devices=2)
+            except RuntimeError as e:
+                if "needs 2 cards" not in str(e):
+                    raise
+                say("mesh", f"--mesh 2 refused: {e}")
+            else:
+                raise SmokeFailure("--mesh 2 ran on a one-card host")
+
+    def _mesh_fof_clustered(self, out):
+        """The --mesh run from cli's clustered PART_007 (RestartFlag 2,
+        SnapNum 7; a = 0.11 is the paramfile's one output and TimeMax),
+        run by gadget_main's rank body in the first run's rank after it
+        (_mesh_rank_hook's `then`): one full force pass, then its
+        snapshot with the slab FOF and the PIG that its on_snapshot
+        writes, before any drift.  That PIG against the single-device FOF
+        of the same snapshot (fof_label and compile_groups here) on a
+        tree of the run's depth, at test_cli_mesh_fof.py's limits; cli's
+        RestartFlag 3 PIG_007, whose tree has 8 levels, is printed beside
+        it: FOF takes at most ncrit sources from a leaf (ROADMAP C.4), so
+        where compact halos fill leaves at the deepest level the
+        catalogue depends on the depth (C.6).  Returns the run's
+        pair-kernel launch shapes."""
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.core.particles import float_to_ipos
+        from shenqi_tpu_torch.fof.fof import compile_groups, fof_label
+        from shenqi_tpu_torch.io.fofio import load_fof
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        run = self.cli_run
+        rec = torch.load(os.path.join(out, "mesh_rank0.pt"),
+                         map_location=self.dev, weights_only=False)
+        self.mesh_launches += rec["launches"]
+        if not (len(rec["snapshots"]) == 1
+                and abs(rec["snapshots"][0] - 0.11) < 1e-9):
+            raise SmokeFailure(f"the --mesh 1 run from PART_007 wrote "
+                               f"snapshots at {rec['snapshots']}")
+        # the single-device catalogue of the same rows, the linking
+        # length formed as gadget_main forms it (FOFHaloLinkingLength 0.2
+        # times the mean separation; FOFHaloMinLength 32)
+        h, b = read_snapshot(os.path.join(run["out"], "PART_007"))
+        box, n = h.BoxSize, len(b[1]["ID"])
+        ipos = float_to_ipos(b[1]["Position"], box, device=self.dev)
+        self._sync()
+        t = time.perf_counter()
+        lab = fof_label(ipos, torch.ones(n, dtype=torch.bool,
+                                         device=self.dev),
+                        0.2 * (box / np.cbrt(n)), box,
+                        nlevels=rec["tree_nlevels"]).cpu().numpy()
+        ref = compile_groups(lab, ipos.cpu().numpy().view(np.uint32),
+                             np.zeros((n, 3), np.float32),
+                             b[1]["Mass"].astype(np.float32),
+                             np.ones(n, np.int8), np.ones(n, bool), box,
+                             min_length=32)
+        sec_ref = time.perf_counter() - t
+        got = load_fof(os.path.join(out, "PIG_000"))
+        cli8 = load_fof(os.path.join(run["out"], "PIG_007"))
+
+        def compare(c1, c2):
+            m1, m2 = np.sort(c1["Mass"]), np.sort(c2["Mass"])
+            l1 = np.sort(np.asarray(c1["LengthByType"]).sum(axis=1))
+            l2 = np.sort(np.asarray(c2["LengthByType"]).sum(axis=1))
+            if len(m1) != len(m2) or not len(m1):
+                return False, f"{len(m2)} groups against {len(m1)}"
+            dm = float(np.max(np.abs(m2 / m1 - 1)))
+            dl = float(np.mean(l1 != l2))
+            return (dm < 5e-3 and dl < 0.1), (
+                f"{len(m2)} groups against {len(m1)}, masses within rtol "
+                f"{dm:.3e} (limit 5e-3), {dl:.3f} of the lengths "
+                f"differing (limit 0.1)")
+        same, line = compare({"Mass": ref.masses,
+                              "LengthByType": ref.lengths[:, None]}, got)
+        _, line8 = compare(cli8, got)
+        say("mesh", f"the --mesh 1 run from the clustered PART_007 ({n} "
+            f"particles, RestartFlag 2, in the same rank): its set-up and "
+            f"run {rec['run_s']:.2f} s, snapshots at a = "
+            f"{rec['snapshots']}; p2p_blocked launches {rec['launches']}; "
+            f"its PIG_000 against the single-device FOF of PART_007 on a "
+            f"tree of the run's {rec['tree_nlevels']} levels ({sec_ref:.2f}"
+            f" s): {line}; against cli's RestartFlag 3 PIG_007 (a tree of "
+            f"8 levels; ROADMAP C.6): {line8}")
+        if not same:
+            raise SmokeFailure("the --mesh 1 run's PIG of the clustered "
+                               "snapshot differs from the single-device "
+                               "FOF of it")
+        return rec["shapes"]
 
     # ------------------------------------------------------------ dmsmall
     def dmsmall(self):
@@ -3068,14 +3281,13 @@ class Smoke:
         """Where the time goes in one full force pass at the slice's size
         (PM + short range for every particle, the work of a step in
         which all particles are active): host-clock stage times with a
-        synchronize after each, then the same pass under torch.profiler
-        (device activity only) for device time by kernel and the
-        device's busy share.  Not part of the counted main path."""
+        synchronize after each.  Not part of the counted main path.  (Its
+        torch.profiler pass, device time by kernel and the busy share,
+        went for the `mesh` phase's clustered run; PERF.md keeps its
+        earlier numbers.)"""
         if self.rehearsal:
             say("profile", "skipped in the CPU rehearsal")
             return
-        torch = self.torch
-        from torch.profiler import profile, ProfilerActivity
         sim = self.sim
 
         def full_pass():
@@ -3096,39 +3308,11 @@ class Smoke:
                  times.maxtimebin, sim.particles)
         full_pass()
         ms = full_pass()
+        (times.pm_length, times.pm_start, times.mintimebin,
+         times.maxtimebin, sim.particles) = saved
         say("profile", f"full force pass ({sim.n_real} targets): PM "
             f"{ms[0]:.2f} ms, short range {ms[1]:.2f} ms, timesteps "
             f"{ms[2]:.2f} ms, total {sum(ms):.2f} ms")
-        t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            full_pass()
-        wall = (time.perf_counter() - t) * 1e3
-        (times.pm_length, times.pm_start, times.mintimebin,
-         times.maxtimebin, sim.particles) = saved
-        rows = sorted(_device_rows(prof), reverse=True)
-        busy = sum(r[0] for r in rows)
-        groups = {"p2p_kernel": 0.0, "fft": 0.0, "sort": 0.0,
-                  "gather/scatter": 0.0, "scan": 0.0, "other": 0.0}
-        for ms_, _, key in rows:
-            k = key.lower()
-            g = ("p2p_kernel" if "p2p_kernel" in k else
-                 "fft" if "fft" in k else
-                 "sort" if ("sort" in k or "radix" in k) else
-                 "gather/scatter" if any(w in k for w in (
-                     "scatter", "index", "gather")) else
-                 "scan" if "scan" in k else "other")
-            groups[g] += ms_
-        # the profiler's own setup and collection stretch the profiled
-        # pass's wall time, so the busy share is taken against the same
-        # pass unprofiled
-        unprof = sum(ms)
-        say("profile", f"profiled full pass: device busy {busy:.1f} ms = "
-            f"{100 * busy / unprof:.1f}% of the unprofiled pass's "
-            f"{unprof:.1f} ms (idle {100 * (1 - busy / unprof):.1f}%; "
-            f"profiled wall {wall:.1f} ms); by group " + ", ".join(
-                f"{k} {v:.2f} ms" for k, v in groups.items()))
-        for ms_, cnt, key in rows[:10]:
-            say("profile", f"  {ms_:9.3f} ms {cnt:5d}x {key[:90]}")
 
     # ------------------------------------------------------------- report
     def report(self):
@@ -3148,6 +3332,7 @@ class Smoke:
                  shape=[r["nb"], r["blk"], r["S"], r["want_pot"]])
             for path, r, n in (
                 ("cli", self.cli_row, self.cli_launches),
+                ("mesh", self.mesh_row, self.mesh_launches),
                 ("slice", self.kernel_row, self.launches),
                 ("dmsmall", self.dmsmall_row, self.dmsmall_launches),
                 ("nu", self.nu_row, self.nu_launches),
@@ -3460,6 +3645,53 @@ class _Wrap:
         return False
 
 
+_MESH_HOOK = {}
+
+
+def _mesh_rank_hook(event, sim, outdir, then=None):
+    """The `mesh` phase inside each rank of a --mesh run: at 'start' the
+    pair kernel's count set to 0 and a recorder of its launch shapes; at
+    'end' the count, one example input of each shape, the rank's force
+    calls, exchanges, collective tallies, tree depth, snapshots and last
+    stages, saved to mesh_rank<r>.pt in the run's output directory for
+    the phase.  `then` (paramfile, SnapNum): after that, the rank runs
+    gadget_main's rank body on it with RestartFlag 2 in the same process
+    group (one spawn and NCCL start for both runs), this hook recording
+    it in its own output directory."""
+    import torch
+    from shenqi_tpu_torch.gravity import stencil as st
+    from shenqi_tpu_torch.ops.p2p import p2p_blocked
+    from shenqi_tpu_torch.parallel import collectives as cc
+    if event == "start":
+        p2p_blocked.launches = 0
+        cc.COUNTS.clear()
+        shapes = _MESH_HOOK["shapes"] = {}
+        kern = _MESH_HOOK["kern"] = st.p2p_blocked
+
+        def record(*a, **kw):
+            key = (a[2].shape[0], kw["blk"], a[2].shape[1], kw["want_pot"])
+            shapes.setdefault(key, [0, a, dict(kw)])[0] += 1
+            return kern(*a, **kw)
+        st.p2p_blocked = record
+        _MESH_HOOK["t0"] = time.perf_counter()
+        return
+    st.p2p_blocked = _MESH_HOOK["kern"]
+    torch.save({"launches": p2p_blocked.launches,
+                "shapes": _MESH_HOOK["shapes"],
+                "run_s": time.perf_counter() - _MESH_HOOK["t0"],
+                "force_log": sim.force_log,
+                "exchange_log": sim.exchange_log,
+                "counts": dict(cc.COUNTS),
+                "tree_nlevels": sim.gravity.tree_nlevels,
+                "snapshots": list(sim.snapshots),
+                "last_stages": dict(sim.walltime.step_acc)},
+               os.path.join(outdir, f"mesh_rank{cc.rank()}.pt"))
+    if then is not None:
+        from shenqi_tpu_torch.cli import gadget_main
+        gadget_main._slab_rank(cc.rank(), sim.device, then[0], 2, then[1],
+                               10 ** 9, False, _mesh_rank_hook)
+
+
 class _RunRecorder:
     """Within a `with` block, records what a gadget_main run does with
     the short-range force: each full pass (`_compute_tree`) and each
@@ -3573,27 +3805,6 @@ class _StageClock:
         return out
 
 
-def _device_rows(prof):
-    """[(ms, count, name)] of a torch.profiler run's device events
-    (kernels, copies, fills) summed by name, read from its raw events:
-    key_averages() builds every event's tree, ~40 s for the ~0.5M events
-    of a source step."""
-    from torch.autograd import DeviceType
-    raw = getattr(prof.profiler, "kineto_results", None)
-    if raw is None:         # a torch without the raw events
-        return [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
-                 e.key) for e in prof.key_averages()
-                if getattr(e, "self_device_time_total", 0.0) > 0]
-    acc = {}
-    for e in raw.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        a = acc.setdefault(e.name(), [0.0, 0])
-        a[0] += e.duration_ns() / 1e6
-        a[1] += 1
-    return [(ms_, n, name) for name, (ms_, n) in acc.items()]
-
-
 def _issue_floor_ms(pairs, inwin, ncf, ncp, want_pot):
     """The pipe-limited floor beside the f32 bound: the operations of
     ops/p2p.py's tally (a pair inside the window at its full count, one
@@ -3667,7 +3878,7 @@ def main(argv) -> int:
     try:
         smoke.start_tables()
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "dmsmall", "nu", "gas", "gas128", "stars", "bh",
+                      "mesh", "dmsmall", "nu", "gas", "gas128", "stars", "bh",
                       "reion", "lc", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:

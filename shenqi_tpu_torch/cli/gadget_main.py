@@ -2,7 +2,7 @@
 path of shenqi_tpu/cli/gadget_main.py for the port.
 
 Usage:
-  python -m shenqi_tpu_torch.cli.gadget_main paramfile [RestartFlag] [SnapNum] [--device cpu]
+  python -m shenqi_tpu_torch.cli.gadget_main paramfile [RestartFlag] [SnapNum] [--mesh N] [--device cpu]
 
 RestartFlag semantics match the reference (gadget/main.cpp:51-119):
   (none)/2 : start from the IC file (or snapshot SnapNum if given)
@@ -23,9 +23,12 @@ PM step of the helium era); ExcursionSetReionOn with a J21CoeffFile;
 snapshots with the gas, star and BH blocks, sfr.txt, resumes that
 restore the gas, star and BH state), LightconeOn (the LIGHTCONE
 bigfile) and WritePlaneOn (FITS potential planes at each snapshot FOF).
-What the port does not have yet is refused with the ROADMAP item that
-brings it: --mesh (A.9), RestartFlag 99 (A.10) and the erfc short-range
-window (A.12).
+`--mesh N` runs the dark-matter slab loop on N spawned ranks (NCCL on
+cuda:0..N-1, gloo with --device cpu; _spawn_slab, _run_slab).  What the
+port does not have yet is refused with the ROADMAP item that brings it:
+on --mesh gas (A.9.2), the subgrid switches (A.9.3), reionization,
+lightcones and planes (A.9.4) and `--mesh AxB` (A.9.5); RestartFlag 99
+(A.10) and the erfc short-range window (A.12).
 """
 
 from __future__ import annotations
@@ -189,13 +192,26 @@ def _write_power(fn, kk, pk, nm, d1):
                         f"{pk[j] / d1 ** 2:g}\n")
 
 
-def _refuse_unported(ps, restart_flag, mesh_devices):
-    """What the run path needs that this slice has not ported (FOF and
+def _refuse_unported(ps, restart_flag, mesh_devices, has_gas=False):
+    """What the run path needs that the port has not ported (FOF and
     P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
-    first two)."""
+    first two).  `--mesh N` runs the dark-matter slab loop (ROADMAP
+    A.9.1); what it does not have yet is refused with its item."""
+    on = [k for k in ("StarformationOn", "CoolingOn", "BlackHoleOn",
+                      "WindOn", "MetalReturnOn") if ps.get_int(k)]
+    reion = [k for k in ("HeliumReionizationOn", "QSOLightupOn",
+                         "ExcursionSetReionOn", "LightconeOn",
+                         "WritePlaneOn") if ps.get_int(k)]
+    mesh = bool(mesh_devices) and restart_flag not in (3, 4)
     refuse = [
         (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
-        (bool(mesh_devices), "--mesh (the multi-device slab run)", "A.9")]
+        (mesh and "x" in str(mesh_devices),
+         f"--mesh {mesh_devices} (the 2-D PM processor grid)", "A.9.5"),
+        (mesh and has_gas, "--mesh with gas (SPH on slabs)", "A.9.2"),
+        (mesh and bool(on), f"--mesh with {', '.join(on)} (the subgrid "
+         "sources on slabs)", "A.9.3"),
+        (mesh and bool(reion), f"--mesh with {', '.join(reion)}",
+         "A.9.4")]
     if restart_flag not in (3, 4):
         refuse.append((ps.get_enum("ShortRangeForceWindowType") != 0,
                        "ShortRangeForceWindowType erfc", "A.12"))
@@ -579,18 +595,14 @@ def _run_power_snapshot(ps, hdr, cp, units, outdir, pos, mass, boxsize,
     return fn
 
 
-def run_gadget(paramfile: str, restart_flag: int = 2,
-               snapnum: int = -1, max_steps: int = 10 ** 9,
-               strict: bool = False, mesh_devices: int = 0, device=None):
-    """Run the paramfile's simulation (or its RestartFlag 3/4 analysis)
-    on `device`: CUDA unless the caller asks for the CPU.  Returns the
-    Simulation, the FOFGroups (3) or the power-spectrum path (4)."""
-    dev = resolve_device(device)
+def _open_run(paramfile, restart_flag, snapnum, strict):
+    """(params, OutputDir, the file to start from, its snapshot number):
+    the IC file, or with RestartFlag 1 the last snapshot on record, or
+    snapshot SnapNum when given."""
     ps = gadget_params()
     ps.parse_file(paramfile, strict=strict)
     outdir = ps.get_string("OutputDir")
     os.makedirs(outdir, exist_ok=True)
-
     icfile = ps.get_string("InitCondFile")
     if restart_flag == 1:
         with open(os.path.join(outdir, "LastSnapNum.txt")) as f:
@@ -598,24 +610,12 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     if restart_flag == 1 or snapnum >= 0:
         icfile = os.path.join(outdir, f"{ps.get_string('SnapshotFileBase')}"
                               f"_{snapnum:03d}")
+    return ps, outdir, icfile, snapnum
 
-    hdr, (pos, vel, ids, mass, ptype), snap_blocks = _read_particles(icfile)
-    has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
-    _refuse_unported(ps, restart_flag, mesh_devices)
-    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
-                           hdr.UnitVelocity_in_cm_per_s)
-    atime = hdr.Time
-    cp = load_cosmology(ps, hdr, atime, units)
-    boxsize = hdr.BoxSize
-    _init_checks(pos, ids, mass, cp, boxsize)
 
-    if restart_flag == 3:
-        return _run_fof_snapshot(ps, hdr, outdir, snapnum, pos, vel, mass,
-                                 ids, ptype, boxsize, atime, dev)
-    if restart_flag == 4:
-        return _run_power_snapshot(ps, hdr, cp, units, outdir, pos, mass,
-                                   boxsize, atime, dev)
-
+def _run_config(ps, hdr, atime, npart):
+    """(timeline, nmesh, timestep parameters, gravity keywords) of a run
+    from the paramfile and the starting snapshot's header."""
     outputs = build_output_list(ps.get_string("OutputList"))
     timeline = Timeline.setup(outputs, atime, ps.get_double("TimeMax"),
                               ps.get_double("NoSnapshotUntilTime"),
@@ -647,7 +647,50 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
             "GravitySoftening" if ps.is_set("GravitySoftening")
             else "FractionalGravitySoftening")
         gravity_kw["softening"] = (
-            2.8 * frac * boxsize / np.cbrt(max(len(pos), 1)))
+            2.8 * frac * hdr.BoxSize / np.cbrt(max(npart, 1)))
+    return timeline, nmesh, tsp, gravity_kw
+
+
+def run_gadget(paramfile: str, restart_flag: int = 2,
+               snapnum: int = -1, max_steps: int = 10 ** 9,
+               strict: bool = False, mesh_devices=0, device=None,
+               rank_hook=None, mesh_timeout: float = 300.0,
+               join_timeout: float = None):
+    """Run the paramfile's simulation (or its RestartFlag 3/4 analysis)
+    on `device`: CUDA unless the caller asks for the CPU.  Returns the
+    Simulation, the FOFGroups (3) or the power-spectrum path (4).
+
+    mesh_devices N > 0 runs the slab simulation on N ranks spawned here
+    (`--mesh N`; _spawn_slab): NCCL with rank r on cuda:r, or gloo with
+    device='cpu'.  mesh_timeout bounds each collective, join_timeout the
+    whole run; rank_hook(event, sim, outdir), a picklable callable,
+    sees each rank at 'start' and 'end'.  Returns rank 0's summary."""
+    dev = resolve_device(device)
+    ps, outdir, icfile, snapnum = _open_run(paramfile, restart_flag,
+                                            snapnum, strict)
+    hdr, (pos, vel, ids, mass, ptype), snap_blocks = _read_particles(icfile)
+    has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
+    _refuse_unported(ps, restart_flag, mesh_devices, has_gas)
+    if mesh_devices and restart_flag not in (3, 4):
+        del pos, vel, ids, mass, ptype, snap_blocks
+        return _spawn_slab(paramfile, restart_flag, snapnum, max_steps,
+                           strict, int(mesh_devices), dev, outdir,
+                           rank_hook, mesh_timeout, join_timeout)
+    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
+                           hdr.UnitVelocity_in_cm_per_s)
+    atime = hdr.Time
+    cp = load_cosmology(ps, hdr, atime, units)
+    boxsize = hdr.BoxSize
+    _init_checks(pos, ids, mass, cp, boxsize)
+
+    if restart_flag == 3:
+        return _run_fof_snapshot(ps, hdr, outdir, snapnum, pos, vel, mass,
+                                 ids, ptype, boxsize, atime, dev)
+    if restart_flag == 4:
+        return _run_power_snapshot(ps, hdr, cp, units, outdir, pos, mass,
+                                   boxsize, atime, dev)
+
+    timeline, nmesh, tsp, gravity_kw = _run_config(ps, hdr, atime, len(pos))
 
     if has_gas:
         # the types stay apart, gas rows first (Simulation.from_species),
@@ -990,17 +1033,183 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
     return sim
 
 
+# ------------------------------------------------ the slab run (--mesh N)
+
+def _spawn_slab(paramfile, restart_flag, snapnum, max_steps, strict, ndev,
+                dev, outdir, rank_hook, mesh_timeout, join_timeout):
+    """`--mesh N` (gadget_main.py:876-907 of the JAX package): N ranks
+    (parallel/launch.py) meeting through a FileStore in OutputDir, NCCL
+    on cuda:0..N-1 or gloo with the CPU; each runs _slab_rank.  Returns
+    rank 0's summary of the run."""
+    from ..parallel.launch import run_ranks
+    return run_ranks(_slab_rank, ndev,
+                     (paramfile, restart_flag, snapnum, max_steps, strict,
+                      rank_hook),
+                     dev.type, os.path.join(outdir, ".mesh_store"),
+                     mesh_timeout, join_timeout)
+
+
+def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
+               strict, rank_hook):
+    """One rank of a slab run: it reads the paramfile and the starting
+    snapshot itself and runs _run_slab."""
+    from ..parallel import collectives as cc
+    ps, outdir, icfile, snapnum = _open_run(paramfile, restart_flag,
+                                            snapnum, strict)
+    hdr, (pos, vel, ids, mass, _), _ = _read_particles(icfile)
+    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
+                           hdr.UnitVelocity_in_cm_per_s)
+    atime = hdr.Time
+    cp = load_cosmology(ps, hdr, atime, units)
+    _init_checks(pos, ids, mass, cp, hdr.BoxSize)
+    timeline, nmesh, tsp, gravity_kw = _run_config(ps, hdr, atime, len(pos))
+    nu_table = _build_nu_table(ps, cp, units, hdr.BoxSize, nmesh, atime,
+                               restart_flag, snapnum, icfile)
+    if rank_hook is not None:
+        rank_hook("start", None, outdir)
+    sim = _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw,
+                    (pos, vel, mass, ids), nmesh, outdir, max_steps,
+                    nu_table, restart_flag == 1, dev)
+    if rank_hook is not None:
+        rank_hook("end", sim, outdir)
+    return {"backend": cc.backend(), "world": cc.world_size(),
+            "step_count": sim.step_count, "atime": sim.atime(),
+            "ti_current": sim.times.ti_current,
+            "hierarchical": sim.hierarchical,
+            "offset_u32": sim._offset_u32,
+            "snapshots": list(sim.snapshots), "hci_exit": sim.hci_exit}
+
+
+def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
+              nmesh, outdir, max_steps, nu_table, resumed, dev):
+    """The dark-matter slab loop of one rank with its outputs
+    (gadget_main.py:272-724 of the JAX package): PART snapshots written
+    by every rank (io/sharded_io), P(k) at each PM step and snapshot, the
+    slab FOF with its distributed catalogue and the PIG at snapshots
+    (SnapshotWithFOF; the PIG holds the group table, as the JAX --mesh
+    run writes it, without member particles), cpu.txt, HCI and the
+    neutrino response.  Rank 0 writes the files no other rank shares."""
+    from ..fof.slab import compile_groups_slab_distributed, fof_label_slab
+    from ..io.sharded_io import save_snapshot_sharded
+    from ..parallel import collectives as cc
+    from ..parallel.slab_sim import SharedHCI, SlabSimulation
+    pos, vel, mass, ids = arrays
+    boxsize = hdr.BoxSize
+    atime = hdr.Time
+    me, ndev = cc.rank(), cc.world_size()
+    sim = SlabSimulation.from_arrays(pos, vel, mass, ids, cp, boxsize, nmesh,
+                                     timeline, atime, tsp=tsp,
+                                     gravity_kw=gravity_kw, device=dev)
+    sim.nu_table = nu_table
+    sim.resumed = resumed
+    sim.hierarchical = bool(ps.get_int("SplitGravityTimestepsOn")
+                            or ps.get_int("HierarchicalGravity"))
+    sim.random_offset_frac = (ps.get_double("RandomParticleOffset")
+                              / max(nmesh, 1))
+    base = ps.get_string("SnapshotFileBase")
+    snap_counter = [_resume_snap_counter(outdir)]
+    mean_sep = boxsize / np.cbrt(max(len(pos), 1))
+    b_link = ps.get_double("FOFHaloLinkingLength") * mean_sep
+    snapshot_with_fof = bool(ps.get_int("SnapshotWithFOF"))
+    del pos, vel, mass, ids, arrays
+
+    def ids64(p):
+        return (u32(p.id_hi) << 32) | u32(p.id_lo)
+
+    def on_snapshot(s, a):
+        snap_counter[0] = max(_snap_index(ps, a, snap_counter[0]),
+                              snap_counter[0])
+        path = os.path.join(outdir, f"{base}_{snap_counter[0]:03d}")
+        shdr = SnapshotHeader(
+            TotNumPart=np.zeros(6, np.uint64), MassTable=np.zeros(6),
+            Time=a, BoxSize=boxsize, Omega0=cp.Omega0,
+            OmegaLambda=cp.OmegaLambda, OmegaBaryon=cp.OmegaBaryon,
+            HubbleParam=cp.HubbleParam,
+            UnitLength_in_cm=units.UnitLength_in_cm,
+            UnitMass_in_g=units.UnitMass_in_g,
+            UnitVelocity_in_cm_per_s=units.UnitVelocity_in_cm_per_s,
+            UsePeculiarVelocity=1, TimeIC=hdr.TimeIC)
+        p = s.particles
+        mass_out = torch.where(p.mask, p.mass, 0.0)
+        save_snapshot_sharded(path, shdr, {
+            "ipos": s.output_ipos(), "vel": p.vel, "mass": mass_out,
+            "pid": p.id_lo, "pid_hi": p.id_hi}, boxsize, a)
+        if me == 0:
+            if s.nu_table is not None:
+                s.nu_table.save(path)
+            with open(os.path.join(outdir, "LastSnapNum.txt"), "w") as f:
+                f.write(str(snap_counter[0]))
+            if s.power_history:
+                a_p, kk, pk, nm = s.power_history[-1]
+                _write_power(os.path.join(outdir,
+                                          f"powerspectrum-{a:.4f}.txt"),
+                             kk, pk, nm, 1.0 / cp.growth_factor(1.0, a))
+        if snapshot_with_fof:
+            wt.measure("Snapshot")
+            glabel, _ = fof_label_slab(
+                {"ipos": p.ipos, "mass": mass_out, "pid": ids64(p)}, b_link,
+                boxsize, ndev, nlevels=s.gravity.tree_nlevels,
+                cuts_in=s.cuts_fp)
+            groups, _ = compile_groups_slab_distributed(
+                glabel, {"ipos": s.output_ipos(), "vel": p.vel,
+                         "mass": mass_out, "ptyp": p.ptype,
+                         "pid": ids64(p)},
+                boxsize, ndev, min_length=ps.get_int("FOFHaloMinLength"))
+            pig = os.path.join(outdir, f"{ps.get_string('FOFFileBase')}"
+                               f"_{snap_counter[0]:03d}")
+            if me == 0:
+                save_fof(pig, groups, hdr, a)
+                print(f"FOF at a={a:g}: {groups.ngroups} groups -> {pig}")
+            cc.barrier()
+            wt.measure("FOF")
+        snap_counter[0] += 1
+
+    sim.on_snapshot = on_snapshot
+    sim.hci = SharedHCI(HCI(outdir,
+                            time_limit_cpu=ps.get_double("TimeLimitCPU"),
+                            auto_checkpoint_time=ps.get_double(
+                                "AutoSnapshotTime")), dev)
+    sim.on_checkpoint = on_snapshot
+    wt = _DeviceWalltime(dev)
+    sim.walltime = wt
+    fd_cpu = (open(os.path.join(outdir, ps.get_string("CpuFile")), "a")
+              if me == 0 else None)
+    pk_written = [0]
+
+    def on_step(s):
+        wt.measure("Misc")
+        if fd_cpu is not None:
+            while pk_written[0] < len(s.power_history):
+                a_p, kk, pk, nm = s.power_history[pk_written[0]]
+                pk_written[0] += 1
+                _write_power(os.path.join(outdir,
+                                          f"powerspectrum-{a_p:.4f}.txt"),
+                             kk, pk, nm, 1.0 / cp.growth_factor(1.0, a_p))
+            wt.write_cpu_log(fd_cpu, s.atime())
+        wt.reset_step()
+
+    sim.on_step = on_step
+    try:
+        sim.run(max_steps=max_steps)
+    finally:
+        if fd_cpu is not None:
+            fd_cpu.close()
+    return sim
+
+
 def main(argv=None):
     argv = list(argv) if argv is not None else sys.argv[1:]
     device = _pop_device(argv)
     mesh_devices = 0
     if "--mesh" in argv:
         i = argv.index("--mesh")
-        mesh_devices = argv[i + 1]
+        spec = argv[i + 1]
+        mesh_devices = spec if "x" in spec else int(spec)
         del argv[i: i + 2]
     if len(argv) < 1:
         print("usage: python -m shenqi_tpu_torch.cli.gadget_main paramfile "
-              "[RestartFlag] [SnapNum] [--device cpu]", file=sys.stderr)
+              "[RestartFlag] [SnapNum] [--mesh N] [--device cpu]",
+              file=sys.stderr)
         return 1
     restart = int(argv[1]) if len(argv) > 1 else 2
     snapnum = int(argv[2]) if len(argv) > 2 else -1

@@ -111,11 +111,13 @@ def hydro_dloga(hsml, max_signal_vel, dt_hsml, atime, hubble,
 
 
 def long_range_dloga(vel, mass, ptype, alive, atime, CP, boxsize,
-                     asmth_internal, params: TimestepParams):
+                     asmth_internal, params: TimestepParams, reduce=None):
     """Global PM timestep from RMS displacement (timestep.cpp:114+).
 
     Per-type reductions on the device in float64; the combination
-    across types is host arithmetic as in the JAX package."""
+    across types is host arithmetic as in the JAX package.  `reduce`,
+    when given, combines the [6, 3] per-type (sum v^2, count, min mass)
+    table across ranks (the slab run's all_reduce)."""
     vel = vel.double()
     mass = mass.double()
     hubble = CP.hubble_function(atime)
@@ -132,7 +134,10 @@ def long_range_dloga(vel, mass, ptype, alive, atime, CP, boxsize,
             torch.sum(sel.double()),
             torch.amin(torch.where(pos_m, mass, 1e30)),
         ]))
-    stats = torch.stack(stats).cpu().numpy()
+    stats = torch.stack(stats)
+    if reduce is not None:
+        stats = reduce(stats)
+    stats = stats.cpu().numpy()
     for t in range(6):
         v_sum[t] = stats[t, 0]
         count[t] = int(stats[t, 1])

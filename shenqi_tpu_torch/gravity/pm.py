@@ -62,34 +62,28 @@ def _sinc_unnormed(x):
                        torch.sin(x) / torch.where(small, 1.0, x))
 
 
-def _cic_invwindow(cfg: PMConfig, device):
-    """Per-mode 1/W_cic for the rfft layout; W = prod sinc^2(pi k/N)."""
+def _cic_invwindow(cfg: PMConfig, device, kvec=None):
+    """Per-mode 1/W_cic for the rfft layout (or the k-vectors `kvec` of
+    another layout); W = prod sinc^2(pi k/N)."""
     n = cfg.nmesh
     f = 1.0
-    for kj in _kgrid(n, device):
+    for kj in (kvec or _kgrid(n, device)):
         s = _sinc_unnormed(kj * (np.pi / n))
         f = f / (s * s)
     return f  # broadcasting produces [n, n, n//2+1]
 
 
-def _k2_int(cfg: PMConfig, device):
-    kx, ky, kz = _kgrid(cfg.nmesh, device)
-    return kx * kx + ky * ky + kz * kz
-
-
-def measure_power(rho_k, cfg: PMConfig, invwindow=None) -> PowerSpectrum:
-    """Bin |rho_k|^2 into log-k2 bins (powerspectrum_add_mode math):
-    kint = floor(binsperunit * log(k2)/2), binsperunit =
-    (nbins-1)/log(sqrt(3) N/2); hermitian weight 2 except on the kz=0
-    and kz=N/2 planes.  f32 sums, as in the JAX package."""
+def power_sums(rho_k, cfg: PMConfig, invwindow, kvec):
+    """The binned sums of measure_power on any k layout (the full rfftn
+    half spectrum, or one rank's pencil): (power, nmodes, ksum, norm)
+    with norm the summed |rho_k|^2 of the k = 0 mode, which a pencil
+    holds on one rank only."""
     n = cfg.nmesh
     dev = rho_k.device
     nbins = cfg.nbins_power or n
-    if invwindow is None:
-        invwindow = _cic_invwindow(cfg, dev)
-    k2 = _k2_int(cfg, dev)
+    kx, ky, kz = kvec
+    k2 = kx * kx + ky * ky + kz * kz
     m = rho_k.real ** 2 + rho_k.imag ** 2
-    kz = _kpos_1d(n, dev, half=True)[None, None, :]
     w = torch.where((kz == 0) | (kz == n // 2), 1.0, 2.0)
     w = torch.broadcast_to(w, m.shape)
     keff = torch.sqrt(k2)
@@ -108,10 +102,26 @@ def measure_power(rho_k, cfg: PMConfig, invwindow=None) -> PowerSpectrum:
     power = segsum(w * m * invwindow * invwindow)
     nmodes = segsum(w)
     ksum = segsum(w * keff)
-    norm = m[0, 0, 0]
+    norm = torch.sum(torch.where(k2 == 0, m, 0.0))
+    return power, nmodes, ksum, norm
+
+
+def power_from_sums(power, nmodes, ksum, norm) -> PowerSpectrum:
     kmean = torch.where(nmodes > 0, ksum / torch.clamp(nmodes, min=1),
                         0.0)
     return PowerSpectrum(k=kmean, power=power, nmodes=nmodes, norm=norm)
+
+
+def measure_power(rho_k, cfg: PMConfig, invwindow=None) -> PowerSpectrum:
+    """Bin |rho_k|^2 into log-k2 bins (powerspectrum_add_mode math):
+    kint = floor(binsperunit * log(k2)/2), binsperunit =
+    (nbins-1)/log(sqrt(3) N/2); hermitian weight 2 except on the kz=0
+    and kz=N/2 planes.  f32 sums, as in the JAX package."""
+    dev = rho_k.device
+    if invwindow is None:
+        invwindow = _cic_invwindow(cfg, dev)
+    return power_from_sums(*power_sums(rho_k, cfg, invwindow,
+                                       _kgrid(cfg.nmesh, dev)))
 
 
 def finalize_power(ps: PowerSpectrum, cfg: PMConfig, boxsize_mpc: float):
@@ -126,6 +136,30 @@ def finalize_power(ps: PowerSpectrum, cfg: PMConfig, boxsize_mpc: float):
     power = power[sel] / nmodes[sel] / norm * boxsize_mpc ** 3
     kk = k * 2 * np.pi / boxsize_mpc
     return kk, power, nmodes[sel]
+
+
+def potential_transfer(cfg: PMConfig, kvec, invwindow):
+    """The potential's Green's function per mode: -G/(pi L) exp(-k2
+    asmth2)/k2 W^-4, times N^3 for the normalized inverse FFT
+    (irfftn divides by N^3, the reference's FFTW does not); 0 at k=0."""
+    n = cfg.nmesh
+    kx, ky, kz = kvec
+    k2 = kx * kx + ky * ky + kz * kz
+    asmth2 = (2 * np.pi * cfg.asmth / n) ** 2
+    pot_factor = -cfg.G / (np.pi * cfg.boxsize)
+    fac = (pot_factor * n ** 3) * torch.exp(-k2 * asmth2) \
+        / torch.where(k2 > 0, k2, 1.0) * invwindow * invwindow
+    return torch.where(k2 > 0, fac, 0.0)
+
+
+def force_transfer(cfg: PMConfig, kj, pot_k):
+    """One force component's modes: i (-(8 sin w - sin 2w)/6 N/L) pot_k,
+    w = 2 pi kj/N (the 4-point difference kernel)."""
+    n = cfg.nmesh
+    w = kj * (2 * np.pi / n)
+    ffac = -((8.0 * torch.sin(w) - torch.sin(2.0 * w)) / 6.0) \
+        * (n / cfg.boxsize)
+    return (1j * ffac) * pot_k
 
 
 def measure_cdm_power(ipos, mass, cfg: PMConfig, mask=None) -> PowerSpectrum:
@@ -163,26 +197,10 @@ def pm_forces(ipos, mass, cfg: PMConfig, mask=None,
         rho_k = rho_k * nu_factor
     ps = measure_power(rho_k, cfg, invwindow)
 
-    k2 = _k2_int(cfg, dev)
-    asmth2 = (2 * np.pi * cfg.asmth / n) ** 2
-    pot_factor = -cfg.G / (np.pi * cfg.boxsize)
-    # fold the unnormalized-inverse-FFT convention (reference/FFTW) into
-    # the transfer: irfftn divides by N^3, the reference does not.
-    fac = (pot_factor * n ** 3) * torch.exp(-k2 * asmth2) \
-        / torch.where(k2 > 0, k2, 1.0) * invwindow * invwindow
-    fac = torch.where(k2 > 0, fac, 0.0)  # remove mean
-    pot_k = rho_k * fac
-
-    accel = []
-    for kj in _kgrid(n, dev):
-        # force_j = ifft( i * (-diff_kernel(w_j) * N/L) * pot_k )
-        w = kj * (2 * np.pi / n)
-        ffac = -((8.0 * torch.sin(w) - torch.sin(2.0 * w)) / 6.0) \
-            * (n / cfg.boxsize)
-        force_k = (1j * ffac) * pot_k
-        fmesh = torch.fft.irfftn(force_k, s=(n, n, n))
-        accel.append(cic_readout(fmesh, ipos, mask=mask))
-    accel = torch.stack(accel, dim=-1)
+    pot_k = rho_k * potential_transfer(cfg, _kgrid(n, dev), invwindow)
+    accel = torch.stack([cic_readout(torch.fft.irfftn(
+        force_transfer(cfg, kj, pot_k), s=(n, n, n)), ipos, mask=mask)
+        for kj in _kgrid(n, dev)], dim=-1)
 
     potential = None
     if want_potential:

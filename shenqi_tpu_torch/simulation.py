@@ -423,6 +423,13 @@ class Simulation:
                 return b
         return TIMEBINS
 
+    # a one-rank run's identity; the slab run sums over its ranks
+    # (parallel/slab_sim.py), so every rank takes the same branch
+    _reduce_type_stats = None
+
+    def _sum_ranks(self, v: int) -> int:
+        return v
+
     def _bin_hist(self, bins, *masks) -> np.ndarray:
         """[len(masks), TIMEBINS+1] host counts of `bins` over each mask,
         in one copy."""
@@ -550,7 +557,7 @@ class Simulation:
                 accel = self._active_source_accel(sel, cnt)
                 last_count = cnt
             self._hier_grav_kick(sel, accel, ti, largest)
-        return bad
+        return self._sum_ranks(bad)
 
     def _apply_half_kick(self, skip_grav: bool = False):
         """The tree-gravity half kick (unless the hierarchy kicks by
@@ -590,7 +597,8 @@ class Simulation:
                           / self.gravity.nmesh)
         dloga_pm = long_range_dloga(
             p.vel, p.mass, p.ptype, p.mask, self.atime(), self.CP,
-            self.boxsize, asmth_internal, self.tsp)
+            self.boxsize, asmth_internal, self.tsp,
+            reduce=self._reduce_type_stats)
         dti = round_down_power_of_two(
             self.timeline.dti_from_dloga(dloga_pm, times.ti_current))
         dti_max = (self.timeline.find_next_ti_sync(times.ti_current)
@@ -639,13 +647,13 @@ class Simulation:
                                        times, self.timeline,
                                        self.tsp.MinSizeTimestep)
         self.particles = p.replace(old_acc=oldacc, timebin=newbins)
-        occ = newbins.long()[p.mask]
-        if occ.numel():
-            lo, hi = torch.stack([occ.min(), occ.max()]).tolist()
-            times.mintimebin, times.maxtimebin = int(lo), int(hi)
+        occupied = np.nonzero(self._bin_hist(newbins, p.mask)[0])[0]
+        if occupied.size:
+            times.mintimebin = int(occupied.min())
+            times.maxtimebin = int(occupied.max())
         if is_pm:
             self._pm_length_floor()
-        return bad
+        return self._sum_ranks(bad)
 
     def _active_mask(self):
         bins_active = torch.as_tensor(active_bins_mask(self.times.ti_current),

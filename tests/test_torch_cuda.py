@@ -647,3 +647,53 @@ def test_excursion_pass_on_card_equals_cpu():
     p0 = res[0].j21_particles.numpy()[:n_gas]
     p1 = res[1].j21_particles.cpu().numpy()[:n_gas]
     assert (np.abs(p0 - p1) <= 1e-4 * p0.max()).mean() >= 0.95
+
+
+def _nccl_stencil_body(rank, dev):
+    """One NCCL rank: the slab short range of a clustered state through
+    the kernel and through its plain version (module level: spawned)."""
+    from shenqi_tpu_torch.core.particles import float_to_ipos
+    from shenqi_tpu_torch.gravity.shortrange import ShortRangeParams
+    from shenqi_tpu_torch.parallel import collectives as cc
+    from shenqi_tpu_torch.parallel.sharded import stencil_forces_slab
+    rng = np.random.RandomState(4)
+    box, n = 50000.0, 32768
+    pos = rng.uniform(0, box, (n, 3))
+    pos[: n // 4] = (box / 3 + rng.normal(0, box / 200, (n // 4, 3))) % box
+    sp = ShortRangeParams(boxsize=box, rcut=4.5 * box / 64,
+                          softening=box / 64 / 30, asmth=1.5,
+                          G=43007.1, cellsize=box / 64)
+    f = {"ipos": float_to_ipos(pos, box, device=dev),
+         "mass": torch.full((n,), 1e-3, device=dev)}
+    acc, info = stencil_forces_slab(f, sp, _window(dev), 1)
+    plain, _ = stencil_forces_slab(f, sp, _window(dev), 1, _plain=True)
+    one = cc.all_sum(torch.ones(1, device=dev))      # through NCCL
+    err = float((acc - plain).abs().max() / plain.abs().max())
+    return {"backend": cc.backend(), "err": err, "sum": float(one),
+            "targets": info["targets"]}
+
+
+@pytest.mark.cuda
+def test_slab_stencil_nccl_rank_equals_plain(tmp_path):
+    """A single-rank NCCL process group runs stencil_forces_slab with the
+    kernel within 2e-4 of its plain version."""
+    _card()
+    from shenqi_tpu_torch.parallel.launch import run_ranks
+    out = run_ranks(_nccl_stencil_body, 1, (), "cuda",
+                    str(tmp_path / "store"), 120.0, 600.0)
+    assert out["backend"] == "nccl" and out["sum"] == 1.0
+    assert out["targets"] == 32768
+    assert out["err"] < 2e-4, out
+
+
+@pytest.mark.cuda
+def test_mesh2_refused_on_one_card(tmp_path):
+    """--mesh 2 on a host with one card raises, naming the count; it never
+    falls back to gloo, the CPU or fewer ranks."""
+    _card()
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two cards")
+    from shenqi_tpu_torch.parallel.launch import run_ranks
+    with pytest.raises(RuntimeError, match="needs 2 cards.*1 present"):
+        run_ranks(_nccl_stencil_body, 2, (), "cuda",
+                  str(tmp_path / "store"))

@@ -44,7 +44,10 @@ def test_port_imports_no_jax():
                  "physics.veldisp", "physics.metal_return",
                  "physics.blackhole", "physics.uv_fluctuations",
                  "physics.helium_reion", "physics.excursion",
-                 "physics.lightcone", "physics.plane", "genic.glass"):
+                 "physics.lightcone", "physics.plane", "genic.glass",
+                 "parallel.collectives", "parallel.domain",
+                 "parallel.pfft", "parallel.sharded", "parallel.slab_sim",
+                 "parallel.launch", "fof.slab", "io.sharded_io"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
