@@ -42,23 +42,30 @@ BUDGET_S for the whole run, the kernel build included:
           output; every launch shape the run gave the pair kernel
           against the plain version, a second launch's bits and its
           bound, as in `kernel`
-  mesh    gadget_main --mesh 1 on cli's ICs and paramfile: the slab run
-          (exchange, pencil-FFT PM, slab stencil, slab FOF, sharded
-          snapshot) on one spawned rank through NCCL (gloo in the
+  mesh    (after `gas`) gadget_main --mesh 1 on cli's ICs and paramfile:
+          the slab run (exchange, pencil-FFT PM, slab stencil, slab FOF,
+          sharded snapshot) on one spawned rank through NCCL (gloo in the
           rehearsal); the backend, per step the exchange's rows, each
           force call's targets, ghosts and seconds, the stages, the
           collectives, seconds per step beside cli's; checks against
           cli's output: the step count, positions by ID within 2e-5 of
-          the box, every P(k) file to rtol 1e-4; then gadget_main
-          --mesh 1 RestartFlag 2 from cli's clustered snapshot with
-          halos, whose first force pass and snapshot write the slab FOF's
-          PIG through the run's own on_snapshot, against the
-          single-device FOF of that snapshot on a tree of the run's depth
-          (group count, masses to rtol 5e-3, under 10% of lengths
+          the box, every P(k) file to rtol 1e-4; then, in the same rank,
+          gadget_main --mesh 1 RestartFlag 2 from cli's clustered
+          snapshot with halos, whose first force pass and snapshot write
+          the slab FOF's PIG through the run's own on_snapshot, against
+          the single-device FOF of that snapshot on a tree of the run's
+          depth (group count, masses to rtol 5e-3, under 10% of lengths
           differing), cli's RestartFlag 3 PIG of it printed beside
-          (ROADMAP C.6); every launch shape the two runs gave
-          the pair kernel against the plain version, as in `cli`; and
-          --mesh 2 refused on a one-card host
+          (ROADMAP C.6); then the `gas` phase's travis-hydro ICs and
+          paramfile under --mesh 1 to its second output, 0.012
+          (MESH_GAS_RUN; the slab SPH: density loop, IC fixed point,
+          hydro, gas kicks, the gas blocks), per step its gas rows and
+          ghosts, hsml-loop iterations, fixed-point iterations and SPH
+          seconds beside the stages, its PART at 0.012 by ID against
+          `gas`'s at tests/test_slab_gas.py's limits, its steps, P(k)
+          and PIGs beside `gas`'s; every launch
+          shape the three runs gave the pair kernel against the plain
+          version, as in `cli`; and --mesh 2 refused on a one-card host
   dmsmall dm-small as its paramfile stands but for its end: 64^3, box
           64000 kpc/h, mesh 128, z = 9 to a = 0.15 (0.25 in dm-small)
           with FOF at 0.15 (the EH table for its CLASS one); the bins
@@ -210,6 +217,15 @@ GAS_RUNS = (("0.01,0.012,0.015", 0.015),
 # after the restart takes no source step, so it runs to 0.017 (one step
 # to 0.016 until the review repair)
 GAS_RESUME_COOLING = "MetalCoolingOn = 1\nMetalCoolFile = {metal}\n"
+# the `mesh` phase's travis-hydro run under --mesh 1, its outputs a
+# prefix of the `gas` run's: to the second output, 0.012 (to 0.015, as
+# `gas`, the script took 542.4 s of its 560 on an H100, a margin no wider
+# than the spread between two runs of one script on two machines; PERF.md
+# section 6); the CPU rehearsal's stops at the first output, the ICs'
+# force pass with the IC fixed point (its 2 x 32^3 SPH takes minutes a
+# step on the CPU)
+MESH_GAS_RUN = ("0.01,0.012", 0.012)
+MESH_GAS_REHEARSAL_RUN = ("0.01", 0.01)
 GAS128_STEPS = 1
 # dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to its
 # first output, 0.15, to leave the budget to `stars` and `bh` (0.25 until
@@ -788,6 +804,21 @@ def _fof_line(fs):
             f"{fs.compile_s:.3f} s")
 
 
+def _cooling_counts():
+    """(solves, rate evaluations) of cooling_rates.do_cooling so far."""
+    from shenqi_tpu_torch.physics.cooling_rates import do_cooling
+    return do_cooling.calls, do_cooling.evaluations
+
+
+def _cooling_line(c0):
+    """The cooling solves since the counts c0 and their rate evaluations
+    (96 a solve at the JAX package's fixed loop counts)."""
+    calls, evals = (b - a for a, b in zip(c0, _cooling_counts()))
+    return (f"cooling solves {calls}, rate evaluations {evals} "
+            f"({evals / max(calls, 1):.1f} a solve; 96 at the fixed loop "
+            f"counts)")
+
+
 def _run(cmd):
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
@@ -821,9 +852,12 @@ class Smoke:
         self.reion_launches, self.reion_row = 0, {}
         self.n_lc = 16 if rehearsal else 64
         self.lc_launches, self.lc_row = 0, {}
-        self.stars_dir = self.bh_dir = self.cli_dir = None
-        # the cli run's paramfile, output, steps and seconds, for `mesh`
-        self.cli_run = None
+        self.stars_dir = self.bh_dir = self.cli_dir = self.gas_dir = None
+        # the cli and gas runs' paramfiles, outputs, steps and seconds,
+        # for `mesh`
+        self.cli_run = self.gas_run = None
+        self.mesh_gas_run = MESH_GAS_REHEARSAL_RUN if rehearsal \
+            else MESH_GAS_RUN
         self.mesh_launches, self.mesh_row = 0, {}
         # the reionization tables, written by tools/ from the start on
         self.table_dir, self.table_procs = None, []
@@ -874,7 +908,7 @@ class Smoke:
                 pr.kill()
                 pr.communicate()
         for d in (self.table_dir, self.stars_dir, self.bh_dir,
-                  self.cli_dir):
+                  self.cli_dir, self.gas_dir):
             if d:
                 shutil.rmtree(d, ignore_errors=True)
 
@@ -1080,42 +1114,40 @@ class Smoke:
     def _time(self, *fns):
         """Each function timed in turns (f1, f2, ..., f1, f2, ...) with
         CUDA events, best of 2 turns, each turn of enough calls to last
-        about 5 ms (at least 5), so that a short kernel is not timed
-        while the card's clocks ramp up; the rehearsal times one call
-        with the host clock."""
+        about 5 ms, so that a short kernel is not timed while the card's
+        clocks ramp up (a plain version of 20-80 ms takes one call a turn:
+        five a turn added a third of a minute to the script);
+        the rehearsal times one call of each with the host clock (its
+        numbers time nothing of the card)."""
         torch = self.torch
-        reps = []
-        for f in fns:                                # warm up, size turns
-            if self.rehearsal:
+        if self.rehearsal:
+            out = []
+            for f in fns:
+                t = time.perf_counter()
                 f()
-                reps.append(1)
-                continue
-            f()
+                out.append((time.perf_counter() - t) * 1e3)
+            return out
+        reps = []
+        for f in fns:                  # the warm-up call sizes the turns
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             f()
             e1.record()
             torch.cuda.synchronize()
-            reps.append(min(1000, max(5, int(5.0 / max(
+            reps.append(min(1000, max(1, int(5.0 / max(
                 e0.elapsed_time(e1), 1e-3)))))
         best = [float("inf")] * len(fns)
         for _ in range(2):
             for i, f in enumerate(fns):
-                if self.rehearsal:
-                    t = time.perf_counter()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(reps[i]):
                     f()
-                    ms = (time.perf_counter() - t) * 1e3
-                else:
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    e1 = torch.cuda.Event(enable_timing=True)
-                    e0.record()
-                    for _ in range(reps[i]):
-                        f()
-                    e1.record()
-                    torch.cuda.synchronize()
-                    ms = e0.elapsed_time(e1) / reps[i]
-                best[i] = min(best[i], ms)
+                e1.record()
+                torch.cuda.synchronize()
+                best[i] = min(best[i], e0.elapsed_time(e1) / reps[i])
         return best
 
     # ------------------------------------------------------------- parity
@@ -1521,8 +1553,9 @@ class Smoke:
         on one spawned rank through NCCL (gloo in the rehearsal), held to
         cli's single-device output; then, in the same rank, the --mesh
         run from cli's clustered snapshot for the catalogue
-        (_mesh_fof_clustered); then --mesh 2 on this one-card host must
-        raise."""
+        (_mesh_fof_clustered) and the --mesh run of the `gas` phase's
+        travis-hydro ICs and paramfile (_mesh_gas); then --mesh 2 on this
+        one-card host must raise."""
         import functools
         import os
         torch = self.torch
@@ -1544,11 +1577,19 @@ class Smoke:
                    os.path.join(out_fof, "PART_007"))
         with open(pp_fof, "w") as f:
             f.write(text.replace(run["out"], out_fof))
+        # the gas run: the `gas` phase's ICs and paramfile
+        out_gas = os.path.join(self.gas_dir, "mesh_output")
+        pp_gas = os.path.join(self.gas_dir, "p_mesh.gadget")
+        with open(pp_gas, "w") as f:
+            f.write(_GADGET_GAS.format(
+                ic=self.gas_run["ic"], out=out_gas,
+                outputs=self.mesh_gas_run[0], a=self.mesh_gas_run[1]))
         dev = "cpu" if self.rehearsal else None      # None: the card
         t = time.perf_counter()
         summ = gadget_main.run_gadget(
             pp, 2, mesh_devices=1, device=dev,
-            rank_hook=functools.partial(_mesh_rank_hook, then=(pp_fof, 7)),
+            rank_hook=functools.partial(
+                _mesh_rank_hook, then=((pp_fof, 7), (pp_gas, -1))),
             mesh_timeout=300.0,
             join_timeout=max(self.budget - elapsed(), 60.0))
         t_mesh = time.perf_counter() - t
@@ -1617,8 +1658,10 @@ class Smoke:
         del rec
         # the run forms no FOF group by a = 0.11: the --mesh catalogue is
         # checked on the run from cli's clustered PART_007 in the same rank
-        for key, (n, a_, kw) in self._mesh_fof_clustered(out_fof).items():
-            shapes.setdefault(key, [0, a_, kw])[0] += n
+        for more in (self._mesh_fof_clustered(out_fof),
+                     self._mesh_gas(out_gas)):
+            for key, (n, a_, kw) in more.items():
+                shapes.setdefault(key, [0, a_, kw])[0] += n
         self.mesh_row = self._check_shapes(shapes, "mesh")
         del shapes
         if not self.rehearsal:
@@ -1707,6 +1750,115 @@ class Smoke:
             raise SmokeFailure("the --mesh 1 run's PIG of the clustered "
                                "snapshot differs from the single-device "
                                "FOF of it")
+        return rec["shapes"]
+
+    def _mesh_gas(self, out):
+        """The --mesh run of travis-hydro (the `gas` phase's ICs and
+        paramfile, RestartFlag 2, z = 99 to MESH_GAS_RUN's TimeMax, in the
+        rehearsal MESH_GAS_REHEARSAL_RUN's), run by the rank after the
+        clustered one: per step its gas rows and ghosts
+        (none at one rank), the hsml loop's iterations and strips, the IC
+        fixed point's iterations, density, fixed-point and hydro seconds
+        beside the step's stages; its snapshot at TimeMax by ID against
+        the `gas` run's, at tests/test_slab_gas.py's limits (IDs and types
+        equal, the entropy finite and positive, its median within rtol
+        5e-3, at least 95% of the gas rows within rtol 2e-2 in Density,
+        4e-2 in SmoothingLength and 1e-2 in entropy, the 95th percentile
+        of |dv| under 2e-2 of the largest |v|); its step count, P(k) files
+        and PIG group counts printed beside the `gas` run's.  Returns the
+        run's pair-kernel launch shapes."""
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.io.fofio import load_fof
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.utils.constants import GAMMA_MINUS1
+        grun = self.gas_run
+        rec = torch.load(os.path.join(out, "mesh_rank0.pt"),
+                         map_location=self.dev, weights_only=False)
+        self.mesh_launches += rec["launches"]
+        steps = _cpu_steps(os.path.join(out, "cpu.txt"))
+        steps.append((None, rec["last_stages"]))
+        fp = rec["fixed_point"]
+        amax = self.mesh_gas_run[1]
+        g_steps = sum(a_ < amax - 1e-9 for a_, _ in _cpu_steps(
+            os.path.join(grun["out"], "cpu.txt")))
+        say("mesh", f"the --mesh 1 run of travis-hydro ({self.n_gas}^3 gas "
+            f"+ DM, RestartFlag 2, in the same rank): its set-up and run "
+            f"{rec['run_s']:.2f} s, {rec['step_count']} steps to a={amax} "
+            f"(gas {g_steps}; gas to {GAS_RUNS[0][1]} {grun['steps']} in "
+            f"{grun['seconds']:.2f} s, SPH {grun['sph_s']:.2f} s), "
+            f"snapshots at a = {rec['snapshots']}; "
+            f"p2p_blocked launches {rec['launches']}; IC fixed point "
+            f"{fp.get('iterations')} iterations, converged "
+            f"{fp.get('converged')}, max relative change per iteration "
+            + ", ".join(f"{d:.2e}" for d in fp.get("maxdiff", [])))
+        for r in rec["sph_log"]:
+            st = steps[r["step"]][1] if r["step"] < len(steps) else {}
+            say("mesh", f"  step {r['step']}: {r['gas']} gas rows, ghosts "
+                f"{r['dens_ghosts']} density / {r['hydro_ghosts']} hydro; "
+                f"hsml loop {r['niter']} iterations, {r['strips']} strips, "
+                f"{r['dens_cover']} cover targets; fixed point "
+                f"{r['fp_iter']} iterations {r['fp_s']:.3f} s; density "
+                f"{r['density_s']:.3f} s, hydro {r['hydro_s']:.3f} s "
+                f"({r['hydro_cover']} cover, {r['long_reach']} long-reach); "
+                f"stages " + ", ".join(f"{k} {v:.3f} s"
+                                       for k, v in sorted(st.items())))
+        snap = f"PART_{self.mesh_gas_run[0].count(','):03d}"
+        h1, b1 = read_snapshot(os.path.join(grun["out"], snap))
+        h2, b2 = read_snapshot(os.path.join(out, snap))
+        a = h1.Time
+        if abs(h2.Time - a) > 1e-9 or sorted(b1) != sorted(b2):
+            raise SmokeFailure(f"the --mesh 1 gas run's {snap} is at "
+                               f"a={h2.Time} with types {sorted(b2)}")
+        for t_ in b1:
+            o1, o2 = np.argsort(b1[t_]["ID"]), np.argsort(b2[t_]["ID"])
+            if not np.array_equal(b1[t_]["ID"][o1], b2[t_]["ID"][o2]):
+                raise SmokeFailure(f"the --mesh 1 gas run wrote other type "
+                                   f"{t_} IDs than gas")
+            b1[t_] = {k: v[o1] for k, v in b1[t_].items()}
+            b2[t_] = {k: v[o2] for k, v in b2[t_].items()}
+        g1, g2 = b1[0], b2[0]
+
+        def entropy(g):
+            return (GAMMA_MINUS1 * g["InternalEnergy"].astype(np.float64)
+                    / (g["Density"].astype(np.float64) / a ** 3)
+                    ** GAMMA_MINUS1)
+        e1, e2 = entropy(g1), entropy(g2)
+        med = float(np.median(e2) / np.median(e1) - 1)
+        share = {name: float(np.isclose(x, y, rtol=rt).mean())
+                 for name, x, y, rt in (
+                     ("Density", g2["Density"], g1["Density"], 2e-2),
+                     ("SmoothingLength", g2["SmoothingLength"],
+                      g1["SmoothingLength"], 4e-2),
+                     ("entropy", e2, e1, 1e-2))}
+        v1 = np.concatenate([b1[t_]["Velocity"] for t_ in sorted(b1)])
+        v2 = np.concatenate([b2[t_]["Velocity"] for t_ in sorted(b2)])
+        dv = float(np.percentile(np.linalg.norm(v2 - v1, axis=1), 95)
+                   / np.abs(v1).max())
+        pks = sorted(f_ for f_ in os.listdir(out)
+                     if f_.startswith("powerspectrum-"))
+        prel = max((float(np.max(np.abs(
+            np.loadtxt(os.path.join(out, f_))[:, 1]
+            / np.loadtxt(os.path.join(grun["out"], f_))[:, 1] - 1)))
+            for f_ in pks if f_ in grun["pks"]), default=float("nan"))
+        groups = [len(load_fof(os.path.join(out, f"PIG_{i:03d}"))["Mass"])
+                  for i in range(self.mesh_gas_run[0].count(",") + 1)]
+        say("mesh", f"  against gas at a={a:.5f}: median entropy within "
+            f"rtol {med:+.3e} (limit 5e-3); rows within the limits: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in share.items())
+            + f" (at least 0.95); 95th percentile |dv| {dv:.3e} of the "
+            f"largest |v| (limit 2e-2); {len(pks)} P(k) files (gas "
+            f"{len(grun['pks'])}), P within rtol {prel:.3e} of gas's; PIG "
+            f"groups {groups} (gas {grun['groups'][:len(groups)]})")
+        if not (np.isfinite(e2).all() and (e2 > 0).all()):
+            raise SmokeFailure("the --mesh 1 gas run's entropy is not finite "
+                               "and positive")
+        if not (abs(med) < 5e-3 and min(share.values()) > 0.95
+                and dv < 2e-2):
+            raise SmokeFailure("the --mesh 1 gas run is off the gas run")
+        if not fp.get("converged") or not rec["sph_log"]:
+            raise SmokeFailure("the --mesh 1 gas run ran no SPH or no IC "
+                               "fixed point")
         return rec["shapes"]
 
     # ------------------------------------------------------------ dmsmall
@@ -1999,13 +2151,11 @@ class Smoke:
         with ProduceGas and DifferentTransferFunctions, RestartFlag 4, the
         run from z = 99 to a = 0.015 with outputs and FOF at 0.01, 0.012
         and 0.015, then a RestartFlag 1 resume from the last output for
-        0.017 with CoolingOn, MetalCoolingOn and a MetalCoolFile."""
+        0.017 with CoolingOn, MetalCoolingOn and a MetalCoolFile.  Its
+        directory stays for `mesh`; close() removes it."""
         import tempfile
-        tmp = tempfile.mkdtemp(prefix="shenqi_gas_")
-        try:
-            self._gas(tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        self.gas_dir = tempfile.mkdtemp(prefix="shenqi_gas_")
+        self._gas(self.gas_dir)
 
     def _gas_files(self, tmp, ng):
         """The tables and the genic paramfile of travis-hydro at Ngrid ng;
@@ -2138,6 +2288,11 @@ class Smoke:
             say("gas", f"FOF at an output: {g_.ngroups} groups, "
                 f"{int(g_.length_by_type[:, 0].sum()) if g_.ngroups else 0} "
                 f"gas rows attached; " + _fof_line(g_.stats))
+        self.gas_run = {"ic": ic, "out": out, "steps": len(steps) - 1,
+                        "seconds": t2, "sph_s": tot.get("SPH", 0.0),
+                        "groups": [g_.ngroups for g_, _ in fofw.calls],
+                        "pks": sorted(f_ for f_ in os.listdir(out)
+                                      if f_.startswith("powerspectrum-"))}
         if abs(sim.atime() - GAS_RUNS[0][1]) > 1e-6:
             raise SmokeFailure(f"travis-hydro ended at a={sim.atime()}")
         if len(fofw.calls) != 3 or not sph.fixed_points:
@@ -2163,8 +2318,10 @@ class Smoke:
         # state is the saved one (no cold start, no fixed point)
         saved = BigFile(os.path.join(out, "PART_002"))
         u_saved = saved["0/InternalEnergy"].read()
+        c0 = _cooling_counts()
         with _Wrap(MetalCoolingTable, "eval") as mcw:
             sim, t1, rec2, sph, _, _ = self._gas_run("gas", pps[1], 1)
+        say("gas", _cooling_line(c0))
         ent = sim.gas.entropy
         say("gas", f"RestartFlag 1 from PART_002 to a={sim.atime():.6f} "
             f"with CoolingOn, MetalCoolingOn and a MetalCoolFile: {t1:.2f} "
@@ -2429,8 +2586,10 @@ class Smoke:
                 _Wrap(gadget_main.Simulation, "run", through=catch), \
                 _StarRecorder() as srec, _SphRecorder(self._sync) as sph, \
                 _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            c0 = _cooling_counts()
             sim = gadget_main.run_gadget(pps[0], 2, device=dev)
         t2 = time.perf_counter() - t
+        say("stars", _cooling_line(c0))
         self.stars_launches = p2p_blocked.launches
         mem = (torch.cuda.max_memory_allocated() / 2 ** 30
                if not self.rehearsal else float("nan"))
@@ -2686,8 +2845,10 @@ class Smoke:
                       through=step_line), \
                 _Wrap(gadget_main.Simulation, "run", through=catch), \
                 _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            c0 = _cooling_counts()
             sim = gadget_main.run_gadget(pps[0], 1, device=dev)
         t_run = time.perf_counter() - t
+        say("bh", _cooling_line(c0))
         self.bh_launches = p2p_blocked.launches
         mem = (torch.cuda.max_memory_allocated() / 2 ** 30
                if not self.rehearsal else float("nan"))
@@ -2980,8 +3141,10 @@ class Smoke:
                       through=step_line), \
                 _Wrap(gadget_main.Simulation, "run", through=catch), \
                 _RunRecorder(self._sync, syncs=not self.rehearsal) as rec:
+            c0 = _cooling_counts()
             sim = gadget_main.run_gadget(pp, 1, device=dev)
         t_run = time.perf_counter() - t
+        say("reion", _cooling_line(c0))
         self.reion_launches = p2p_blocked.launches
         mem = (torch.cuda.max_memory_allocated() / 2 ** 30
                if not self.rehearsal else float("nan"))
@@ -3648,16 +3811,17 @@ class _Wrap:
 _MESH_HOOK = {}
 
 
-def _mesh_rank_hook(event, sim, outdir, then=None):
+def _mesh_rank_hook(event, sim, outdir, then=()):
     """The `mesh` phase inside each rank of a --mesh run: at 'start' the
     pair kernel's count set to 0 and a recorder of its launch shapes; at
     'end' the count, one example input of each shape, the rank's force
-    calls, exchanges, collective tallies, tree depth, snapshots and last
-    stages, saved to mesh_rank<r>.pt in the run's output directory for
-    the phase.  `then` (paramfile, SnapNum): after that, the rank runs
-    gadget_main's rank body on it with RestartFlag 2 in the same process
-    group (one spawn and NCCL start for both runs), this hook recording
-    it in its own output directory."""
+    calls, exchanges, SPH passes and IC fixed point, collective tallies,
+    tree depth, snapshots and last stages, saved to mesh_rank<r>.pt in
+    the run's output directory for the phase.  `then`, a list of
+    (paramfile, SnapNum): after that, the rank runs gadget_main's rank
+    body on the first with RestartFlag 2 in the same process group (one
+    spawn and NCCL start for every run), this hook recording it in its
+    own output directory and going on with the rest."""
     import torch
     from shenqi_tpu_torch.gravity import stencil as st
     from shenqi_tpu_torch.ops.p2p import p2p_blocked
@@ -3681,15 +3845,21 @@ def _mesh_rank_hook(event, sim, outdir, then=None):
                 "run_s": time.perf_counter() - _MESH_HOOK["t0"],
                 "force_log": sim.force_log,
                 "exchange_log": sim.exchange_log,
+                "sph_log": sim.sph_log,
+                "fixed_point": sim.last_fixed_point,
+                "step_count": sim.step_count,
                 "counts": dict(cc.COUNTS),
                 "tree_nlevels": sim.gravity.tree_nlevels,
                 "snapshots": list(sim.snapshots),
                 "last_stages": dict(sim.walltime.step_acc)},
                os.path.join(outdir, f"mesh_rank{cc.rank()}.pt"))
-    if then is not None:
+    if then:
+        import functools
         from shenqi_tpu_torch.cli import gadget_main
-        gadget_main._slab_rank(cc.rank(), sim.device, then[0], 2, then[1],
-                               10 ** 9, False, _mesh_rank_hook)
+        (pp, snapnum), rest = then[0], tuple(then[1:])
+        gadget_main._slab_rank(cc.rank(), sim.device, pp, 2, snapnum,
+                               10 ** 9, False,
+                               functools.partial(_mesh_rank_hook, then=rest))
 
 
 class _RunRecorder:
@@ -3878,7 +4048,7 @@ def main(argv) -> int:
     try:
         smoke.start_tables()
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "mesh", "dmsmall", "nu", "gas", "gas128", "stars", "bh",
+                      "dmsmall", "nu", "gas", "mesh", "gas128", "stars", "bh",
                       "reion", "lc", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:

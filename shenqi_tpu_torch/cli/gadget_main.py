@@ -23,12 +23,14 @@ PM step of the helium era); ExcursionSetReionOn with a J21CoeffFile;
 snapshots with the gas, star and BH blocks, sfr.txt, resumes that
 restore the gas, star and BH state), LightconeOn (the LIGHTCONE
 bigfile) and WritePlaneOn (FITS potential planes at each snapshot FOF).
-`--mesh N` runs the dark-matter slab loop on N spawned ranks (NCCL on
-cuda:0..N-1, gloo with --device cpu; _spawn_slab, _run_slab).  What the
-port does not have yet is refused with the ROADMAP item that brings it:
-on --mesh gas (A.9.2), the subgrid switches (A.9.3), reionization,
-lightcones and planes (A.9.4) and `--mesh AxB` (A.9.5); RestartFlag 99
-(A.10) and the erfc short-range window (A.12).
+`--mesh N` runs the slab loop on N spawned ranks (NCCL on cuda:0..N-1,
+gloo with --device cpu; _spawn_slab, _run_slab): dark matter and, with
+HydroOn, adiabatic SPH with the gas blocks in its snapshots; a resume
+starts its gas from InitGasTemp and the IC fixed point, as the JAX
+--mesh run does.  What the port does not have yet is refused with the
+ROADMAP item that brings it: on --mesh the subgrid switches (A.9.3),
+reionization, lightcones and planes (A.9.4) and `--mesh AxB` (A.9.5);
+RestartFlag 99 (A.10) and the erfc short-range window (A.12).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from ..core.particles import (ParticleData, float_to_ipos, u32,
                               u32_numpy_to_i32)
 from ..io.snapshot import SnapshotHeader, read_snapshot, write_snapshot
 from ..io.fofio import save_fof, save_fof_particles
+from ..io.sharded_io import gas_internal_energy
 from ..simulation import Simulation
 from ..simulation_gas import GasPhysics
 from ..sph.kernels import KERNELS
@@ -192,11 +195,12 @@ def _write_power(fn, kk, pk, nm, d1):
                         f"{pk[j] / d1 ** 2:g}\n")
 
 
-def _refuse_unported(ps, restart_flag, mesh_devices, has_gas=False):
+def _refuse_unported(ps, restart_flag, mesh_devices):
     """What the run path needs that the port has not ported (FOF and
     P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
-    first two).  `--mesh N` runs the dark-matter slab loop (ROADMAP
-    A.9.1); what it does not have yet is refused with its item."""
+    first two).  `--mesh N` runs the slab loop with dark matter and
+    adiabatic gas (ROADMAP A.9.1-A.9.2); what it does not have yet is
+    refused with its item."""
     on = [k for k in ("StarformationOn", "CoolingOn", "BlackHoleOn",
                       "WindOn", "MetalReturnOn") if ps.get_int(k)]
     reion = [k for k in ("HeliumReionizationOn", "QSOLightupOn",
@@ -207,7 +211,6 @@ def _refuse_unported(ps, restart_flag, mesh_devices, has_gas=False):
         (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
         (mesh and "x" in str(mesh_devices),
          f"--mesh {mesh_devices} (the 2-D PM processor grid)", "A.9.5"),
-        (mesh and has_gas, "--mesh with gas (SPH on slabs)", "A.9.2"),
         (mesh and bool(on), f"--mesh with {', '.join(on)} (the subgrid "
          "sources on slabs)", "A.9.3"),
         (mesh and bool(reion), f"--mesh with {', '.join(reion)}",
@@ -497,11 +500,7 @@ def _gas_blocks(s, t, sel, a):
         d["SmoothingLength"] = host(s.particles.hsml)
         d["Density"] = dens
         d["EgyWtDensity"] = host(g.egy_wt_density)
-        a3inv = 1.0 / a ** 3
-        with np.errstate(invalid="ignore"):
-            u = (entr * np.maximum(dens * a3inv, 1e-35) ** GAMMA_MINUS1
-                 / GAMMA_MINUS1)
-        d["InternalEnergy"] = np.nan_to_num(u).astype(np.float32)
+        d["InternalEnergy"] = gas_internal_energy(entr, dens, a)
         d["ElectronAbundance"] = host(g.ne)
         d["StarFormationRate"] = host(g.sfr)
         d["Metallicity"] = host(g.metallicity)
@@ -670,7 +669,7 @@ def run_gadget(paramfile: str, restart_flag: int = 2,
                                             snapnum, strict)
     hdr, (pos, vel, ids, mass, ptype), snap_blocks = _read_particles(icfile)
     has_gas = bool((ptype == 0).any()) and bool(ps.get_int("HydroOn"))
-    _refuse_unported(ps, restart_flag, mesh_devices, has_gas)
+    _refuse_unported(ps, restart_flag, mesh_devices)
     if mesh_devices and restart_flag not in (3, 4):
         del pos, vel, ids, mass, ptype, snap_blocks
         return _spawn_slab(paramfile, restart_flag, snapnum, max_steps,
@@ -1056,7 +1055,7 @@ def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
     from ..parallel import collectives as cc
     ps, outdir, icfile, snapnum = _open_run(paramfile, restart_flag,
                                             snapnum, strict)
-    hdr, (pos, vel, ids, mass, _), _ = _read_particles(icfile)
+    hdr, (pos, vel, ids, mass, ptype), _ = _read_particles(icfile)
     units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
                            hdr.UnitVelocity_in_cm_per_s)
     atime = hdr.Time
@@ -1065,11 +1064,19 @@ def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
     timeline, nmesh, tsp, gravity_kw = _run_config(ps, hdr, atime, len(pos))
     nu_table = _build_nu_table(ps, cp, units, hdr.BoxSize, nmesh, atime,
                                restart_flag, snapnum, icfile)
+    gas = None
+    if (ptype == 0).any() and ps.get_int("HydroOn"):
+        # the SPH configuration and u0 from InitGasTemp at the start's
+        # a, also on a resume: the JAX --mesh run starts its gas from u0
+        # and the fixed point whatever the snapshot holds
+        # (gadget_main.py:876-907; ROADMAP C.4)
+        gas = _gas_physics(ps, cp, units, atime, mass[ptype == 0],
+                           hdr.BoxSize)
     if rank_hook is not None:
         rank_hook("start", None, outdir)
     sim = _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw,
-                    (pos, vel, mass, ids), nmesh, outdir, max_steps,
-                    nu_table, restart_flag == 1, dev)
+                    (pos, vel, mass, ids, ptype), nmesh, outdir, max_steps,
+                    nu_table, restart_flag == 1, dev, gas)
     if rank_hook is not None:
         rank_hook("end", sim, outdir)
     return {"backend": cc.backend(), "world": cc.world_size(),
@@ -1081,25 +1088,36 @@ def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
 
 
 def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
-              nmesh, outdir, max_steps, nu_table, resumed, dev):
-    """The dark-matter slab loop of one rank with its outputs
-    (gadget_main.py:272-724 of the JAX package): PART snapshots written
-    by every rank (io/sharded_io), P(k) at each PM step and snapshot, the
-    slab FOF with its distributed catalogue and the PIG at snapshots
-    (SnapshotWithFOF; the PIG holds the group table, as the JAX --mesh
-    run writes it, without member particles), cpu.txt, HCI and the
-    neutrino response.  Rank 0 writes the files no other rank shares."""
+              nmesh, outdir, max_steps, nu_table, resumed, dev, gas=None):
+    """The slab loop of one rank with its outputs (gadget_main.py:272-724
+    of the JAX package): dark matter, and with gas = (GasPhysics, u0)
+    adiabatic SPH (the types apart, SlabSimulation.from_species); PART
+    snapshots written by every rank (io/sharded_io, with the gas blocks),
+    P(k) at each PM step and snapshot, the slab FOF of every type with its
+    distributed catalogue and the PIG at snapshots (SnapshotWithFOF; the
+    PIG holds the group table, as the JAX --mesh run writes it, without
+    member particles), cpu.txt, HCI and the neutrino response.  Rank 0
+    writes the files no other rank shares."""
     from ..fof.slab import compile_groups_slab_distributed, fof_label_slab
-    from ..io.sharded_io import save_snapshot_sharded
+    from ..io.sharded_io import save_snapshot_sharded_multi
     from ..parallel import collectives as cc
     from ..parallel.slab_sim import SharedHCI, SlabSimulation
-    pos, vel, mass, ids = arrays
+    pos, vel, mass, ids, ptype = arrays
     boxsize = hdr.BoxSize
     atime = hdr.Time
     me, ndev = cc.rank(), cc.world_size()
-    sim = SlabSimulation.from_arrays(pos, vel, mass, ids, cp, boxsize, nmesh,
-                                     timeline, atime, tsp=tsp,
-                                     gravity_kw=gravity_kw, device=dev)
+    if gas is None:
+        sim = SlabSimulation.from_arrays(pos, vel, mass, ids, cp, boxsize,
+                                         nmesh, timeline, atime, tsp=tsp,
+                                         gravity_kw=gravity_kw, device=dev)
+    else:
+        gp, u0 = gas
+        species = [(int(ty), pos[ptype == ty], vel[ptype == ty],
+                    mass[ptype == ty], ids[ptype == ty])
+                   for ty in sorted(set(ptype.tolist()))]
+        sim = SlabSimulation.from_species(
+            species, cp, boxsize, nmesh, timeline, atime, tsp=tsp,
+            gravity_kw=gravity_kw, gas_u0=u0, gas_physics=gp, device=dev)
     sim.nu_table = nu_table
     sim.resumed = resumed
     sim.hierarchical = bool(ps.get_int("SplitGravityTimestepsOn")
@@ -1111,7 +1129,7 @@ def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
     mean_sep = boxsize / np.cbrt(max(len(pos), 1))
     b_link = ps.get_double("FOFHaloLinkingLength") * mean_sep
     snapshot_with_fof = bool(ps.get_int("SnapshotWithFOF"))
-    del pos, vel, mass, ids, arrays
+    del pos, vel, mass, ids, ptype, arrays
 
     def ids64(p):
         return (u32(p.id_hi) << 32) | u32(p.id_lo)
@@ -1131,9 +1149,18 @@ def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
             UsePeculiarVelocity=1, TimeIC=hdr.TimeIC)
         p = s.particles
         mass_out = torch.where(p.mask, p.mass, 0.0)
-        save_snapshot_sharded(path, shdr, {
+        g = s.gas
+        gcols = None
+        if g is not None:
+            pad = p.n - g.ngas
+            gcols = {"hsml": p.hsml, **{
+                k: torch.nn.functional.pad(v, (0, pad)) for k, v in (
+                    ("density", g.density), ("egywt", g.egy_wt_density),
+                    ("entropy", g.entropy))}}
+        save_snapshot_sharded_multi(path, shdr, {
             "ipos": s.output_ipos(), "vel": p.vel, "mass": mass_out,
-            "pid": p.id_lo, "pid_hi": p.id_hi}, boxsize, a)
+            "pid": p.id_lo, "pid_hi": p.id_hi, "ptype": p.ptype}, boxsize,
+            a, gas=gcols)
         if me == 0:
             if s.nu_table is not None:
                 s.nu_table.save(path)

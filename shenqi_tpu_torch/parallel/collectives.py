@@ -9,7 +9,8 @@ place the mapping lives:
       per-rank row counts exchanged first and exact split sizes, so no
       bucket capacity (kcap, gcap) exists and nothing can overflow
   ppermute ring                        -> batch_isend_irecv (ring_shift)
-  psum / pmin                          -> all_reduce (all_sum, all_min)
+  psum / pmin / pmax                   -> all_reduce (all_sum, all_min,
+                                          all_max)
   all_gather                           -> all_gather (all_gather_rows)
 
 Rows of several fields travel together as one int32 matrix
@@ -93,6 +94,11 @@ def all_sum(t: torch.Tensor) -> torch.Tensor:
 def all_min(t: torch.Tensor) -> torch.Tensor:
     """pmin."""
     return _reduce(t, dist.ReduceOp.MIN)
+
+
+def all_max(t: torch.Tensor) -> torch.Tensor:
+    """pmax."""
+    return _reduce(t, dist.ReduceOp.MAX)
 
 
 def sum_int(v: int, device) -> int:

@@ -3,15 +3,15 @@ shenqi_tpu/parallel/sharded.py:47, as processes).
 
 `run_ranks(body, ndev, args, device_type, ...)` starts `ndev` processes
 with torch.multiprocessing in spawn mode.  Rank r sets its device
-(cuda:r, or the CPU with one thread), joins the process group through a
-FileStore (collectives.init: NCCL on cards, gloo on the CPU; no TCP
-port, so parallel runs cannot collide), calls body(rank, device, *args)
-and leaves the group.  `timeout_s` bounds each collective, so a rank
-that never joins one makes the others raise instead of hang;
-`join_timeout` bounds the whole run.  A rank that raises ends the
-others, and its traceback is raised here.  `body` must be picklable (a
-module-level function); rank 0's return value, which must be small,
-comes back.
+(cuda:r, or the CPU, with one thread when there are several ranks),
+joins the process group through a FileStore (collectives.init: NCCL on
+cards, gloo on the CPU; no TCP port, so parallel runs cannot collide),
+calls body(rank, device, *args) and leaves the group.  `timeout_s`
+bounds each collective, so a rank that never joins one makes the others
+raise instead of hang; `join_timeout` bounds the whole run.  A rank that
+raises ends the others, and its traceback is raised here.  `body` must
+be picklable (a module-level function); rank 0's return value, which
+must be small, comes back.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from . import collectives as cc
 def _rank_main(rank, body, ndev, args, device_type, store, timeout_s, q):
     dev = (torch.device("cuda", rank) if device_type == "cuda"
            else torch.device("cpu"))
-    if dev.type == "cpu":
+    if dev.type == "cpu" and ndev > 1:
+        # ranks share the host's cores; one rank keeps torch's threads
         torch.set_num_threads(1)
     cc.init(store, rank, ndev, dev, timeout_s)
     try:

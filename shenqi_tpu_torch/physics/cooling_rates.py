@@ -11,12 +11,16 @@ table (same file format as the reference).
 The rate fits, the ionization equilibrium and the implicit solver are
 f32 torch ops on the caller's tensors; the UVB interpolation at the
 current redshift is host float64 (`TreeCool`, `UVBG`, `CoolingParams`
-and `self_shield_dens` are copies of the JAX package's host code).  The
-solver loops keep the JAX package's fixed iteration counts
-(`get_equilib_ne` 40 + 1, the bracket 45, the bisection 50), so a
-cooling call makes no host sync; on a card each rate evaluation replays
-a captured CUDA graph (`heatingcooling_rate`).  The UVB rates are host
-floats or, under the fluctuating UVB, [rows] tensors
+and `self_shield_dens` are copies of the JAX package's host code).
+`get_equilib_ne` keeps the JAX package's fixed 40 + 1 iterations.  The
+solver's bracket (at most 45 steps) and bisection (at most 50) stop at
+the first step that moves no row, as the reference's loops stop
+(cooling.cpp:57-135), where the JAX package runs both to their counts:
+each step reads one flag on the host, and the steps left out would
+only re-evaluate the rate at an unchanged point (`do_cooling`).  On a
+card each rate evaluation replays a captured CUDA graph
+(`heatingcooling_rate`).  The UVB rates are host floats or, under the
+fluctuating UVB, [rows] tensors
 (uv_fluctuations.local_uvbg).  Where a host rate is zero its term is left
 out on the host, where the JAX package selects 0.0 for it on the device;
 where all three are zero (no TREECOOL file, as in star-small) the
@@ -479,11 +483,11 @@ def get_neutral_fraction(rho_cgs, u_cgs, helium, uvbg: UVBG,
 #
 # One rate evaluation (40 + 1 damped ionization iterations, then the
 # rates) is thousands of kernel launches in torch ops, and the implicit
-# solver makes 96 of them: 6-11 s of host dispatch per call on an H100
-# (tools/torch_cooling_bench.py), where the JAX package runs one fused
-# XLA program.  On a CUDA device the evaluation is captured as a CUDA
-# graph per row bucket (a power of two) and parameter set, and replayed:
-# the same kernels without the host dispatch.  The redshift is a device
+# solver makes up to 96 of them: 6-11 s of host dispatch per call at 96
+# on an H100 (tools/torch_cooling_bench.py), where the JAX package runs
+# one fused XLA program.  On a CUDA device the evaluation is captured as
+# a CUDA graph per row bucket (a power of two) and parameter set, and
+# replayed: the same kernels without the host dispatch.  The redshift is a device
 # buffer of the graph, and so are the metallicity (with a metal cooling
 # table, whose lookup the graph holds) and per-row UV rates (the
 # fluctuating UVB).  Host-float UV rates are baked in, so a bucket's
@@ -598,7 +602,13 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
     """Implicit cooling update: solve u = u_old + LambdaNet(u) dt.
 
     Vectorized version of the reference bisection (cooling.cpp:57-135):
-    geometric bracket growth by 1.1x, then fixed-count bisection.
+    geometric bracket growth by 1.1x, then bisection.  Each loop ends at
+    its count (BRACKET_ITERS, BISECT_ITERS, the JAX package's) or at the
+    first step in which no row's bracket moved: a later step would
+    evaluate the rate at the same point again, from the ne it returned
+    there, and change ne by rounding alone.  `do_cooling.evaluations`
+    counts the rate evaluations (1 + the bracket's + the bisection's;
+    96 at the full counts) and `do_cooling.calls` the solves.
     metallicity/metal_cool are forwarded to the rate (metal cooling);
     `uvbg` and `extra_heat` may hold per-row tensors.  Returns
     (u_new_cgs, ne/nh at the solution).
@@ -621,6 +631,8 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
 
     ne = (torch.ones_like(u_old) if ne_init is None else ne_init)
     f0, ne = lamdt(u_old, ne)
+    do_cooling.calls += 1
+    do_cooling.evaluations += 1
     heating = (u_old - u_old - f0) < 0   # -f0 < 0 means heating
 
     lo = torch.where(heating, u_old, u_old / 1.1)
@@ -648,13 +660,26 @@ def do_cooling(u_old_cgs, rho_cgs, dt_s, helium, redshift, uvbg: UVBG,
         hi = torch.where(need_up, hi * 1.1, torch.where(need_dn,
                                                         lo_n * 1.1, hi))
         lo, ne = lo_n, ne2
+        do_cooling.evaluations += 1
+        if not bool((need_up | need_dn).any()):
+            break
     lo = torch.clamp(lo, min=min_egyspec_cgs * 0.1 + 1e-30)
 
     for _ in range(BISECT_ITERS):
         u = 0.5 * (lo + hi)
         f, ne = lamdt(u, ne)
+        do_cooling.evaluations += 1
         above = (u - u_old - f) > 0
+        # a row is settled once the midpoint rounds to an end of its
+        # bracket (f32 neighbours, ~22 halvings of the 1.1x bracket)
+        moved = torch.where(above, u != hi, u != lo)
         hi = torch.where(above, u, hi)
         lo = torch.where(above, lo, u)
+        if not bool(moved.any()):
+            break
     u = torch.clamp(0.5 * (lo + hi), min=min_egyspec_cgs)
     return u, ne
+
+
+do_cooling.calls = 0
+do_cooling.evaluations = 0

@@ -118,6 +118,10 @@ class Simulation:
     # (a0, a1, crossings, host seconds) of each drift, with a lightcone
     lightcone_log: object = None
 
+    # the drift predicts the gas smoothing lengths (the slab loop's does
+    # not: parallel/slab_sim.py)
+    _DRIFT_HSML = True
+
     def __post_init__(self):
         if self.gravity.engine != "stencil":
             raise NotImplementedError(
@@ -295,7 +299,7 @@ class Simulation:
         p = p.replace(ipos=_drift(
             p.ipos, p.vel, p.mask, fac32,
             float(np.float32(POS_SCALE / self.boxsize))))
-        if self.gas is not None:
+        if self.gas is not None and self._DRIFT_HSML:
             # predict smoothing lengths through the drift (drift.cpp:55-66,
             # Gadget-4 style: Hsml += DtHsml * ddrift, capped), so the
             # density bisection starts near its answer

@@ -250,6 +250,105 @@ class DensityOutput:
     n_hmax_capped: int = 0
 
 
+def stencil_walker(payload, boxsize, k: int, spec: KernelSpec, caps: dict,
+                   stats: dict = None):
+    """walk(t_ipos, t_vel, hsml) -> the eight density sums (a list) of
+    the given targets over the pair-packed grid of `payload`, with the
+    targets the stencil flags `cover` redone by cover_patch (counted in
+    stats["cover"] when stats is given)."""
+    from .stencil_density import build_grid_sph, stencil_density_walk
+    grid = build_grid_sph(payload["ipos"], payload["mass"], payload["vel"],
+                          payload["entvar"], k)
+
+    def walk(t_ipos, t_vel, hsml):
+        if t_ipos.shape[0] == 0:
+            return list(_zeros_result(0, t_ipos.device))
+        res, cover, nc = stencil_density_walk(
+            grid, t_ipos, t_vel, hsml, boxsize, k, spec=spec,
+            tier_cache=caps)
+        res = list(res)
+        if nc:
+            sel = torch.nonzero(cover).squeeze(1)
+            if stats is not None:
+                stats["cover"] = stats.get("cover", 0) + sel.shape[0]
+            sub = cover_patch(grid, payload, t_ipos[sel], t_vel[sel],
+                              hsml[sel], boxsize, k, spec, caps)
+            for j in range(len(res)):
+                res[j] = res[j].index_put((sel,), sub[j])
+        return res
+    return walk
+
+
+def stencil_level(boxsize: float, n_src: int) -> int:
+    """The SPH grid level of n_src sources: cells of ~2.4 mean
+    separations."""
+    sep_src = boxsize / max(n_src, 1) ** (1.0 / 3.0)
+    return int(np.clip(round(np.log2(boxsize / (2.4 * sep_src))), 1, 10))
+
+
+def hsml_loop(walk, target_ipos, target_vel, state: HsmlState, des,
+              ngb_deviation, boxsize, hmax32, maxiter: int = MAXITER,
+              agree=None):
+    """The adaptive-H iterations (do_hsml_loop): the first walk takes
+    every target, later ones only the targets whose H changed (the
+    reference re-queues only unconverged particles); each target's
+    stored result is always that of its latest H, so no final full walk
+    is needed.  agree(changed, hsml) -> int, when given, replaces the
+    local count of changed targets in the stop test (the slab run's
+    all-reduced decision, parallel/sph_slab.py).  Returns (the eight
+    sums, the final state, iterations)."""
+    t = target_ipos.shape[0]
+    res = walk(target_ipos, target_vel, state.hsml)
+    it = 0
+    for it in range(maxiter):
+        hsml_prev = state.hsml
+        state = update_hsml(state, res[0], res[2], res[1], des,
+                            ngb_deviation, boxsize)
+        state = state._replace(hsml=torch.clamp(state.hsml, max=hmax32))
+        changed = state.hsml != hsml_prev
+        nch = int(changed.sum())
+        if (nch if agree is None else agree(changed, state.hsml)) == 0:
+            break
+        if nch == 0:
+            continue
+        if nch > t // 2:
+            res = walk(target_ipos, target_vel, state.hsml)
+            continue
+        sel = torch.nonzero(changed).squeeze(1)
+        sub = walk(target_ipos[sel], target_vel[sel], state.hsml[sel])
+        for k in range(len(res)):
+            res[k] = res[k].index_put((sel,), sub[k])
+    return res, state, it + 1
+
+
+def density_output(res: DensityResult, hsml, target_entvar,
+                   do_egy_density: bool, niter: int,
+                   n_capped: int = 0) -> "DensityOutput":
+    """The derived density fields of the sums at the final H
+    (density.py:380-410 of the JAX package)."""
+    rho = torch.clamp(res.rho, min=1e-35)
+    dhsml_fac = res.dhsml_rho * hsml / (NUMDIMS * rho)
+    dhsml_fac = 1.0 / (1.0 + dhsml_fac)
+    div_vel = res.div / rho
+    curl_vel = torch.linalg.norm(res.rot, dim=-1) / rho
+    dt_hsml = (1.0 / NUMDIMS) * div_vel * hsml
+
+    if do_egy_density:
+        egy_rho = torch.clamp(res.egy_rho, min=1e-35)
+        dhsml_egy = res.dhsml_egy * hsml / (NUMDIMS * egy_rho)
+        dhsml_egy = -dhsml_egy * dhsml_fac
+        egy_wt_density = egy_rho / torch.clamp(target_entvar, min=1e-35)
+    else:
+        dhsml_egy = dhsml_fac
+        egy_wt_density = rho
+    return DensityOutput(
+        hsml=hsml, numngb=res.ngb, density=res.rho,
+        dhsml_density_factor=dhsml_fac, egy_wt_density=egy_wt_density,
+        dhsml_egy_density_factor=dhsml_egy, div_vel=div_vel,
+        curl_vel=curl_vel, grad_rho=res.grad_rho, dt_hsml=dt_hsml,
+        niter=niter, n_hmax_capped=n_capped)
+
+
 def density(payload, target_ipos, target_vel, target_entvar, hsml0,
             boxsize, spec: KernelSpec = CUBIC, eta: float = 1.0,
             ngb_deviation: float = 2.0, do_egy_density: bool = True,
@@ -262,7 +361,6 @@ def density(payload, target_ipos, target_vel, target_entvar, hsml0,
     ones when not using pressure-entropy SPH), in any row order.
     hsml0: the targets' starting smoothing lengths (a tensor).
     """
-    from .stencil_density import build_grid_sph, stencil_density_walk
     des = float(desnumngb(spec, eta))
     t = target_ipos.shape[0]
     dev = target_ipos.device
@@ -279,78 +377,20 @@ def density(payload, target_ipos, target_vel, target_entvar, hsml0,
                       done=torch.zeros(t, dtype=torch.bool, device=dev))
     if caps is None:
         caps = {}
-    n_src = payload["ipos"].shape[0]
-    sep_src = boxsize / max(n_src, 1) ** (1.0 / 3.0)
-    kst = int(np.clip(round(np.log2(boxsize / (2.4 * sep_src))), 1, 10))
-    grid = build_grid_sph(payload["ipos"], payload["mass"], payload["vel"],
-                          payload["entvar"], kst)
-
-    def walk(t_ipos, t_vel, hsml):
-        res, cover, nc = stencil_density_walk(
-            grid, t_ipos, t_vel, hsml, boxsize, kst, spec=spec,
-            tier_cache=caps)
-        res = list(res)
-        if nc:
-            sel = torch.nonzero(cover).squeeze(1)
-            sub = cover_patch(grid, payload, t_ipos[sel], t_vel[sel],
-                              hsml[sel], boxsize, kst, spec, caps)
-            for k in range(len(res)):
-                res[k] = res[k].index_put((sel,), sub[k])
-        return res
-
-    # iteration 1: all targets; later iterations walk only the targets
-    # whose hsml changed (the reference re-queues only unconverged
-    # particles); each target's stored result is always that of its
-    # latest hsml, so no final full walk is needed
-    res = walk(target_ipos, target_vel, state.hsml)
-    it = 0
+    walk = stencil_walker(payload, boxsize,
+                          stencil_level(boxsize, payload["ipos"].shape[0]),
+                          spec, caps)
     hmax32 = float(np.float32(hmax_allowed))
-    for it in range(maxiter):
-        hsml_prev = state.hsml
-        state = update_hsml(state, res[0], res[2], res[1], des,
-                            ngb_deviation, boxsize)
-        state = state._replace(hsml=torch.clamp(state.hsml, max=hmax32))
-        changed = state.hsml != hsml_prev
-        nch = int(changed.sum())
-        if nch == 0:
-            break
-        if nch > t // 2:
-            res = walk(target_ipos, target_vel, state.hsml)
-            continue
-        sel = torch.nonzero(changed).squeeze(1)
-        sub = walk(target_ipos[sel], target_vel[sel], state.hsml[sel])
-        for k in range(len(res)):
-            res[k] = res[k].index_put((sel,), sub[k])
-    res = DensityResult(*res)
-
+    res, state, niter = hsml_loop(walk, target_ipos, target_vel, state, des,
+                                  ngb_deviation, boxsize, hmax32, maxiter)
     hsml = state.hsml
-    rho = torch.clamp(res.rho, min=1e-35)
-    dhsml_fac = res.dhsml_rho * hsml / (NUMDIMS * rho)
-    dhsml_fac = 1.0 / (1.0 + dhsml_fac)
-    div_vel = res.div / rho
-    curl_vel = torch.linalg.norm(res.rot, dim=-1) / rho
-    dt_hsml = (1.0 / NUMDIMS) * div_vel * hsml
-
-    if do_egy_density:
-        egy_rho = torch.clamp(res.egy_rho, min=1e-35)
-        dhsml_egy = res.dhsml_egy * hsml / (NUMDIMS * egy_rho)
-        dhsml_egy = -dhsml_egy * dhsml_fac
-        egy_wt_density = egy_rho / torch.clamp(target_entvar, min=1e-35)
-    else:
-        dhsml_egy = dhsml_fac
-        egy_wt_density = rho
-
     n_capped = int(torch.sum(
         hsml >= float(np.float32(hmax32) * np.float32(0.999))))
     if n_capped:
         print(f"density: {n_capped} targets at the hmax bracket "
               f"ceiling {hmax_allowed:g} (may be under-neighboured)")
-    return DensityOutput(
-        hsml=hsml, numngb=res.ngb, density=res.rho,
-        dhsml_density_factor=dhsml_fac, egy_wt_density=egy_wt_density,
-        dhsml_egy_density_factor=dhsml_egy, div_vel=div_vel,
-        curl_vel=curl_vel, grad_rho=res.grad_rho, dt_hsml=dt_hsml,
-        niter=it + 1, n_hmax_capped=n_capped)
+    return density_output(DensityResult(*res), hsml, target_entvar,
+                          do_egy_density, niter, n_capped)
 
 
 def make_gas_payload(tree, vel, entvar):

@@ -697,3 +697,76 @@ def test_mesh2_refused_on_one_card(tmp_path):
     with pytest.raises(RuntimeError, match="needs 2 cards.*1 present"):
         run_ranks(_nccl_stencil_body, 2, (), "cuda",
                   str(tmp_path / "store"))
+
+
+def _nccl_sph_body(rank, dev):
+    """One NCCL rank: slab density and hydro of a clustered gas state
+    against the single-device stencil SPH on the same card (module level:
+    spawned)."""
+    from shenqi_tpu_torch.core.particles import float_to_ipos
+    from shenqi_tpu_torch.parallel import collectives as cc
+    from shenqi_tpu_torch.parallel.sph_slab import density_slab, hydro_slab
+    from shenqi_tpu_torch.sph.density import density
+    from shenqi_tpu_torch.sph.hydro import (HydroParams, balsara_f1,
+                                            hydro_time_factors,
+                                            pressure_predict)
+    from shenqi_tpu_torch.sph.stencil_hydro import stencil_hydro_walk
+    rng = np.random.RandomState(6)
+    box, n = 50000.0, 32768
+    pos = rng.uniform(0, box, (n, 3))
+    pos[: n // 4] = (box / 3 + rng.normal(0, box / 100, (n // 4, 3))) % box
+    f = {"ipos": float_to_ipos(pos, box, device=dev),
+         "mass": torch.ones(n, device=dev),
+         "vel": torch.from_numpy(rng.normal(0, 30, (n, 3)).astype(
+             np.float32)).to(dev),
+         "entvar": torch.ones(n, device=dev)}
+    h0 = torch.full((n,), 2.0 * box / n ** (1 / 3), device=dev)
+    d1, info = density_slab(f, h0, box, 1)
+    d0 = density(f, f["ipos"], f["vel"], f["entvar"], h0, box)
+    tf = hydro_time_factors(0.5, 0.15)
+    press = pressure_predict(torch.clamp(d0.egy_wt_density, min=1e-35),
+                             f["entvar"])
+    f1 = balsara_f1(d0.div_vel, d0.curl_vel, torch.sqrt(
+        5 / 3 * press / torch.clamp(d0.egy_wt_density, min=1e-35)),
+        d0.hsml, tf["fac_mu"])
+    z = torch.zeros(n, device=dev)
+    src = {**f, "hsml": d0.hsml, "density": d0.density,
+           "eomdensity": d0.egy_wt_density, "pressure": press,
+           "divvel": d0.div_vel, "curlvel": d0.curl_vel,
+           "dhsml_egy": d0.dhsml_egy_density_factor, "dloga": z,
+           "decoupled": torch.zeros(n, dtype=torch.bool, device=dev)}
+    tg = {"ipos": f["ipos"], "vel": f["vel"], "hsml": d0.hsml,
+          "mass": f["mass"], "density": d0.density,
+          "egyrho": d0.egy_wt_density, "entvar": f["entvar"],
+          "pressure": press, "f1": f1, "dhsml": d0.dhsml_egy_density_factor,
+          "dloga": z}
+    par = HydroParams(boxsize=box)
+    h1, _ = hydro_slab(src, tg, par, tf, box, 1)
+    table = torch.stack([f["mass"], d0.hsml, *f["vel"].T, d0.density,
+                         d0.egy_wt_density, f["entvar"], press, d0.div_vel,
+                         d0.curl_vel, d0.dhsml_egy_density_factor, z], 1)
+    h0_, _, nc, _ = stencil_hydro_walk(f["ipos"], table, tg, par, tf=tf)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    return {"backend": cc.backend(), "niter": (info["niter"], d0.niter),
+            "hsml": float(((d1.hsml - d0.hsml).abs() / d0.hsml).max()),
+            "rho": float(((d1.density - d0.density).abs()
+                          / d0.density).max()),
+            "acc": rel(h1.accel, h0_.accel), "cover": nc}
+
+
+@pytest.mark.cuda
+def test_slab_sph_nccl_rank_equals_single_device(tmp_path):
+    """A single-rank NCCL process group runs the slab density loop and
+    hydro on a clustered state, equal to the single-device stencil SPH on
+    the card (hsml and density within rtol 3e-5, the iterations equal,
+    accelerations within 1e-4 of the largest)."""
+    _card()
+    from shenqi_tpu_torch.parallel.launch import run_ranks
+    out = run_ranks(_nccl_sph_body, 1, (), "cuda", str(tmp_path / "store"),
+                    120.0, 600.0)
+    assert out["backend"] == "nccl"
+    assert out["niter"][0] == out["niter"][1], out
+    assert out["hsml"] < 3e-5 and out["rho"] < 3e-5, out
+    assert out["acc"] < 1e-4, out

@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                  "physics.lightcone", "physics.plane", "genic.glass",
                  "parallel.collectives", "parallel.domain",
                  "parallel.pfft", "parallel.sharded", "parallel.slab_sim",
-                 "parallel.launch", "fof.slab", "io.sharded_io"):
+                 "parallel.launch", "parallel.sph_slab", "fof.slab",
+                 "io.sharded_io"):
         assert f"shenqi_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

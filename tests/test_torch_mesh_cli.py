@@ -14,7 +14,8 @@ lengths differing (tests/test_cli_mesh_fof.py:72-80).  The miniature
 forms no FOF group by a = 0.125, so its PIGs are both empty;
 tests/test_torch_fof_slab.py holds the slab catalogue to the JAX one on
 a clustered state.  Each refusal of what --mesh still lacks names its
-ROADMAP item, before any rank starts.
+ROADMAP item, before any rank starts (gas with HydroOn runs since
+A.9.2: tests/test_torch_mesh_gas_cli.py).
 """
 
 import os
@@ -122,7 +123,7 @@ def test_mesh_refusals(ic, tmp_path, monkeypatch):
         pf = _param(tmp_path, icpath, tmp_path / "out", extra)
         with pytest.raises(NotImplementedError, match=match):
             tg.run_gadget(pf, mesh_devices=mesh, device="cpu")
-    # gas rows with HydroOn
+    # gas rows with HydroOn run (A.9.2); with cooling they are refused
     from shenqi_tpu_torch.io.snapshot import read_snapshot, write_snapshot
     hdr, blocks = read_snapshot(icpath)
     n = len(blocks[1]["ID"])
@@ -130,8 +131,9 @@ def test_mesh_refusals(ic, tmp_path, monkeypatch):
     gas = dict(blocks[1], ID=blocks[1]["ID"] + n)
     write_snapshot(str(tmp_path / "IC_gas"), hdr, {0: gas, 1: blocks[1]})
     pf = _param(tmp_path, tmp_path / "IC_gas", tmp_path / "out",
-                "HydroOn = 1\n")
-    with pytest.raises(NotImplementedError, match="--mesh with gas.*A.9.2"):
+                "HydroOn = 1\nCoolingOn = 1\n")
+    with pytest.raises(NotImplementedError,
+                       match="--mesh with CoolingOn.*A.9.3"):
         tg.run_gadget(pf, mesh_devices=4, device="cpu")
     pf = _param(tmp_path, icpath, tmp_path / "out")
     with pytest.raises(NotImplementedError, match=r"--mesh 3x2.*A\.9\.5"):

@@ -8,7 +8,10 @@ gloo ranks with two writer groups (NUM_WRITERS 2):
     (the ID words, the exact f8 positions of the uint32 bits, v / a);
   * load_snapshot_sharded hands each rank exactly the rows of its slab,
     positions and masses bit-exact, velocities to rtol 1e-6 (v / a
-    written in f4, times a read back), IDs as written.
+    written in f4, times a read back), IDs as written;
+  * save_snapshot_sharded_multi's PART file of three types, the gas with
+    its five SPH blocks, is byte for byte write_snapshot's of the same
+    rows (each type's in rank order).
 """
 
 import dataclasses
@@ -108,3 +111,76 @@ def test_sharded_snapshot_round_trip(tmp_path):
                                       ipos[m])
         np.testing.assert_array_equal(res["mass"][k], mass[m])
         np.testing.assert_allclose(res["vel"][k], vel[m], rtol=1e-6)
+
+
+def _gas_cols():
+    rng = np.random.RandomState(5)
+    ptype = rng.choice(np.array([0, 1, 4], np.int8), N, p=[0.45, 0.5, 0.05])
+    cols = {k: rng.uniform(lo, hi, N).astype(np.float32) for k, lo, hi in (
+        ("hsml", 10.0, 900.0), ("density", 1e-9, 1e-6),
+        ("egywt", 1e-9, 1e-6), ("entropy", 1e3, 1e6))}
+    return ptype, cols
+
+
+def _io_multi_body(rank, dev, out):
+    from shenqi_tpu_torch.io import sharded_io
+    from shenqi_tpu_torch.io.sharded_io import save_snapshot_sharded_multi
+    from shenqi_tpu_torch.parallel.domain import distribute_slabs
+    ipos, vel, mass, ids = _state()
+    ptype, cols = _gas_cols()
+    loc = distribute_slabs({"ipos": ipos, "vel": vel, "mass": mass,
+                            "lo": (ids & np.uint64(0xFFFFFFFF)).astype(
+                                np.uint32).view(np.int32),
+                            "hi": (ids >> np.uint64(32)).astype(
+                                np.uint32).view(np.int32),
+                            "ptype": ptype, "row": np.arange(N), **cols},
+                           D, rank)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in loc.items()}
+    sharded_io.NUM_WRITERS = 2         # two writer groups of two ranks
+    save_snapshot_sharded_multi(
+        f"{out}/PART_000", _header(),
+        {"ipos": t["ipos"].view(torch.int32), "vel": t["vel"],
+         "mass": t["mass"], "pid": t["lo"], "pid_hi": t["hi"],
+         "ptype": t["ptype"]}, BOX, A, gas={k: t[k] for k in cols})
+    np.savez(f"{out}/rank{rank}.npz", row=loc["row"])
+
+
+def test_sharded_multi_species_equals_single_writer(tmp_path):
+    """save_snapshot_sharded_multi's file (three types, the gas with its
+    five SPH blocks) is byte for byte write_snapshot's of the same rows:
+    each type's rows in rank order, InternalEnergy as the single-device
+    CLI writes it."""
+    from shenqi_tpu_torch.io.sharded_io import gas_internal_energy
+    from shenqi_tpu_torch.io.snapshot import read_snapshot, write_snapshot
+    ranks = spawn_ranks(_io_multi_body, D, tmp_path)
+    ipos, vel, mass, ids = _state()
+    ptype, cols = _gas_cols()
+    rows = np.concatenate([r["row"] for r in ranks])     # file row order
+    pos64 = ipos.astype(np.float64) * (BOX / 2 ** 32)
+    blocks = {}
+    for t in (0, 1, 4):
+        r = rows[ptype[rows] == t]
+        blocks[t] = {"Position": pos64[r], "Velocity": (vel / A)[r],
+                     "Mass": mass[r], "ID": ids[r]}
+        if t == 0:
+            blocks[t].update(
+                SmoothingLength=cols["hsml"][r], Density=cols["density"][r],
+                EgyWtDensity=cols["egywt"][r], Entropy=cols["entropy"][r],
+                InternalEnergy=gas_internal_energy(
+                    cols["entropy"][r], cols["density"][r], A))
+    h, b = read_snapshot(str(tmp_path / "PART_000"))
+    counts = np.bincount(ptype, minlength=6)
+    np.testing.assert_array_equal(h.TotNumPart, counts)
+    assert sorted(b) == [0, 1, 4] and sorted(b[0]) == sorted(blocks[0])
+    want_dir = tmp_path / "single"
+    write_snapshot(str(want_dir), dataclasses.replace(
+        _header(), TotNumPart=h.TotNumPart), blocks)
+    dirs = set()
+    for root, _, files in os.walk(want_dir):
+        for f in files:
+            rel = os.path.relpath(os.path.join(root, f), want_dir)
+            with open(os.path.join(root, f), "rb") as fa, \
+                    open(tmp_path / "PART_000" / rel, "rb") as fb:
+                assert fa.read() == fb.read(), rel
+            dirs.add(os.path.dirname(rel))
+    assert len(dirs - {"Header", ""}) == 3 * 4 + 5     # every block
