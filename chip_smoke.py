@@ -42,7 +42,9 @@ BUDGET_S for the whole run, the kernel build included:
           output; every launch shape the run gave the pair kernel
           against the plain version, a second launch's bits and its
           bound, as in `kernel`
-  mesh    (after `gas`) gadget_main --mesh 1 on cli's ICs and paramfile:
+  mesh    (run after `bh`, whose directory holds the `stars` output; the
+          `cli` and `gas` outputs stay until the end) gadget_main --mesh
+          1 on cli's ICs and paramfile:
           the slab run (exchange, pencil-FFT PM, slab stencil, slab FOF,
           sharded snapshot) on one spawned rank through NCCL (gloo in the
           rehearsal); the backend, per step the exchange's rows, each
@@ -57,15 +59,26 @@ BUDGET_S for the whole run, the kernel build included:
           depth (group count, masses to rtol 5e-3, under 10% of lengths
           differing), cli's RestartFlag 3 PIG of it printed beside
           (ROADMAP C.6); then the `gas` phase's travis-hydro ICs and
-          paramfile under --mesh 1 to its second output, 0.012
+          paramfile under --mesh 1 to its first output, 0.01
           (MESH_GAS_RUN; the slab SPH: density loop, IC fixed point,
-          hydro, gas kicks, the gas blocks), per step its gas rows and
-          ghosts, hsml-loop iterations, fixed-point iterations and SPH
-          seconds beside the stages, its PART at 0.012 by ID against
-          `gas`'s at tests/test_slab_gas.py's limits, its steps, P(k)
-          and PIGs beside `gas`'s; every launch
-          shape the three runs gave the pair kernel against the plain
-          version, as in `cli`; and --mesh 2 refused on a one-card host
+          hydro, the gas blocks), its gas rows and ghosts, hsml-loop
+          iterations, fixed-point iterations and SPH seconds, its PART
+          by ID against `gas`'s at tests/test_slab_gas.py's limits, P(k)
+          and PIGs beside `gas`'s; then the `stars` output at
+          0.1178 resumed under --mesh 1 with `bh`'s paramfile
+          (BlackHoleOn, the UVFluctuationFile, ofjt10 winds,
+          MetalReturnOn) and MESH_SUB_SF to the outputs 0.1179 and
+          0.1181 (MESH_SUB_RUN: the PM step that ends at 0.1179 runs
+          the seeding FOF and gives the winds their speed; every slab
+          source stage): stars formed (split and whole printed), wind kicks, the
+          velocity dispersion on a PM step, a BH seeded at the seed mass
+          and accreting, no entropy lowered by the feedback, the total
+          mass within 1e-6, every field finite, every star and BH in the
+          PIG; per step its SPH passes, eEOS rows, the Cooling, BH and
+          MetalReturn seconds beside `bh`'s at the same a, each source
+          stage's gathered pack and collectives; every launch shape the
+          four runs gave the pair kernel against the plain version, as
+          in `cli`; and --mesh 2 refused on a one-card host
   dmsmall dm-small as its paramfile stands but for its end: 64^3, box
           64000 kpc/h, mesh 128, z = 9 to a = 0.15 (0.25 in dm-small)
           with FOF at 0.15 (the EH table for its CLASS one); the bins
@@ -101,8 +114,7 @@ BUDGET_S for the whole run, the kernel build included:
           syncs and peak memory; every launch shape against the plain
           version
   gas128  the same at 2 x 128^3 particles: genic_main, the IC entropy
-          fixed point and the first loop pass, the same records, and
-          one all-active SPH pass under torch.profiler by operation group
+          fixed point and the first loop pass, the same records
   stars   star-small (validation/star_small.py:36-77): 64^3 gas + 64^3
           DM, box 5 Mpc/h, z = 9, CoolingOn, StarformationOn, WindOn
           (ofjt10), MetalReturnOn, pressure-entropy SPH, FOF at each
@@ -143,9 +155,10 @@ BUDGET_S for the whole run, the kernel build included:
           HeliumReionizationOn with a ReionHistFile, ExcursionSetReionOn
           with a J21CoeffFile (both tables written by tools/ while the
           earlier phases run) and WritePlaneOn, resumed with RestartFlag 1
-          from the `bh` output (0.119) to the outputs 0.1193 and 0.1196,
-          each the end of a PM step whose FOF runs the QSO bubbles and
-          the excursion pass.  Cuts (REION_SWITCHES): the HeII history
+          from the `bh` output (0.119) to the output 0.1193 (0.1196 too
+          until the `mesh` phase's subgrid run needed the budget), the end
+          of a PM step whose FOF
+          runs the QSO bubbles and the excursion pass.  Cuts (REION_SWITCHES): the HeII history
           from z = 9 (the reference's starts at z 4-6), QSOMinMass 0.15
           (below the one star-holding group at 0.118), QSOMeanBubble 1
           Mpc/h (below the 5 Mpc/h box), ReionNionPhotPerBary 40000
@@ -218,13 +231,13 @@ GAS_RUNS = (("0.01,0.012,0.015", 0.015),
 # to 0.016 until the review repair)
 GAS_RESUME_COOLING = "MetalCoolingOn = 1\nMetalCoolFile = {metal}\n"
 # the `mesh` phase's travis-hydro run under --mesh 1, its outputs a
-# prefix of the `gas` run's: to the second output, 0.012 (to 0.015, as
-# `gas`, the script took 542.4 s of its 560 on an H100, a margin no wider
-# than the spread between two runs of one script on two machines; PERF.md
-# section 6); the CPU rehearsal's stops at the first output, the ICs'
-# force pass with the IC fixed point (its 2 x 32^3 SPH takes minutes a
-# step on the CPU)
-MESH_GAS_RUN = ("0.01,0.012", 0.012)
+# prefix of the `gas` run's: to the first output, the ICs' force pass
+# with the IC fixed point, since the phase took its subgrid run (to the
+# second output, 0.012, the script took 453.1 s on an H100; with the
+# subgrid run it reached 476.2 s at the end of `mesh`, ~503 s in all; to
+# 0.015, as `gas`, 542.4 s; PERF.md sections 5-6); the CPU rehearsal's
+# stops there too (its 2 x 32^3 SPH takes minutes a step on the CPU)
+MESH_GAS_RUN = ("0.01", 0.01)
 MESH_GAS_REHEARSAL_RUN = ("0.01", 0.01)
 GAS128_STEPS = 1
 # dm-small runs to a = 0.25 (validation/dm_small.py:44-59), here to its
@@ -269,6 +282,32 @@ STARS_REHEARSAL_RUNS = (("0.102,0.104", 0.104),)
 # a = 0.14-0.15, past this budget; PERF.md section 4)
 BH_RUNS = (("0.105,0.11,0.115,0.1178,0.1185,0.119", 0.119),)
 BH_SEEDING = "MinFoFMassForNewSeed = 0.15\nMinMStarForNewSeed = 2e-4\n"
+# the `mesh` phase's fourth run: `bh`'s paramfile under --mesh 1, resumed
+# from the `stars` output at 0.1178 to the outputs 0.1179 and 0.1181.  A
+# PM step ends at each output: the one at 0.1179, the first after the
+# start, runs the seeding FOF (there rather than at `bh`'s 0.1185: the
+# run to 0.1185 took 16 steps and 70.03 s on the card, the script 526 s
+# in all) and the first velocity dispersion, which the wind speed needs
+# (0 until then on --mesh, ROADMAP C.4), so the winds kick from 0.1179
+# on (with 0.1185 the one output after the start, no star formed after
+# its PM step).  Two cuts (MESH_SUB_SF), since at star-small's rate two
+# stars formed from 0.1169 to 0.1178: MaxSfrTimescale 1.5 -> 0.015 with
+# CritPhysDensity pinned at the 0.223 H/cm^3 that star-small derives at
+# 1.5 (the derived threshold scales with 1/MaxSfrTimescale: at 0.015 no
+# row reached it), 8 stars by 0.1181 on the card, and Generations 4 ->
+# 2, so that a row that split once converts whole at its next (PERF.md
+# section 6).  The rehearsal runs from its `stars` output (0.104) to
+# 0.108, past a second PM step
+MESH_SUB_RUN = ("0.105,0.11,0.115,0.1178,0.1179,0.1181", 0.1181)
+MESH_SUB_REHEARSAL_RUN = ("0.102,0.104,0.106,0.108", 0.108)
+MESH_SUB_SF = ("MaxSfrTimescale = 0.015\nCritPhysDensity = 0.223\n"
+               "Generations = 2\n")
+# the rehearsal's 16^3: the slab FOF links every type within 0.2 mean
+# separations (the single-device FOF attaches gas to the nearest DM or
+# star farther out), which there holds no star; at 0.5 a few groups do,
+# so the seeding runs (most stars stay outside groups: that check is the
+# card's)
+MESH_SUB_REHEARSAL_FOF = "FOFHaloLinkingLength = 0.5\n"
 # the rehearsal's 16^3 forms no FOF group of 8 members or more: its `bh`
 # phase links groups of 4 and seeds in any group with a star
 BH_REHEARSAL_RUNS = (("0.102,0.104,0.106,0.108", 0.108),)
@@ -277,7 +316,8 @@ BH_REHEARSAL_SEEDING = ("FOFHaloMinLength = 4\nMinFoFMassForNewSeed = 0.1\n"
 # the `reion` phase: star-small with every subgrid switch (BlackHoleOn with
 # BH_SEEDING, HeliumReionizationOn with a ReionHistFile, ExcursionSetReionOn
 # with a J21CoeffFile, WritePlaneOn) resumed from the `bh` run's output
-# 0.119 to the outputs 0.1193 and 0.1196: each ends a PM step, whose FOF
+# 0.119 to the output 0.1193 (0.1196 too until the `mesh` phase's
+# subgrid run needed the budget): it ends a PM step, whose FOF
 # runs the QSO bubbles and after which the excursion pass runs.  Cuts
 # (PERF.md section 4): the HeII history linear from z = HEII_Z[0] = 9
 # (above the run's z = 7.3; the reference's starts at z 4-6) to 6;
@@ -285,14 +325,14 @@ BH_REHEARSAL_SEEDING = ("FOFHaloMinLength = 4\nMinFoFMassForNewSeed = 0.1\n"
 # holds stars at 0.118 (0.2135); QSOMeanBubble 1000 kpc/h, below the
 # 5 Mpc/h box (default 20 Mpc/h); ReionNionPhotPerBary 4000 -> 40000, so
 # that the cells around the box's few star-holding groups cross the
-# excursion barrier fcoll > 1/ReionEfficiency by a = 0.1196 (at 4000 none
+# excursion barrier fcoll > 1/ReionEfficiency by a = 0.1193 (at 4000 none
 # did: xHI 0.998 by volume, PR 11 call 1; star-small's 5 Mpc/h holds 5-7
 # stars then).  UVFluctuationFile is the `bh` phase's, since the J21
 # rates take precedence over it here, and MetalCoolFile the `gas`
 # resume's, since a run with star formation never reads it (in both
 # packages).  The rehearsal's 16^3 groups are far lighter: QSOMinMass 0
 # there
-REION_RUNS = ((BH_RUNS[0][0] + ",0.1193,0.1196", 0.1196),)
+REION_RUNS = ((BH_RUNS[0][0] + ",0.1193", 0.1193),)
 REION_REHEARSAL_RUNS = ((BH_REHEARSAL_RUNS[0][0] + ",0.1085,0.109", 0.109),)
 REION_SWITCHES = """HeliumReionizationOn = 1
 ReionHistFile = {heii}
@@ -858,6 +898,9 @@ class Smoke:
         self.cli_run = self.gas_run = None
         self.mesh_gas_run = MESH_GAS_REHEARSAL_RUN if rehearsal \
             else MESH_GAS_RUN
+        self.mesh_sub_run = MESH_SUB_REHEARSAL_RUN if rehearsal \
+            else MESH_SUB_RUN
+        self.mesh_sub_start = None
         self.mesh_launches, self.mesh_row = 0, {}
         # the reionization tables, written by tools/ from the start on
         self.table_dir, self.table_procs = None, []
@@ -1553,9 +1596,11 @@ class Smoke:
         on one spawned rank through NCCL (gloo in the rehearsal), held to
         cli's single-device output; then, in the same rank, the --mesh
         run from cli's clustered snapshot for the catalogue
-        (_mesh_fof_clustered) and the --mesh run of the `gas` phase's
-        travis-hydro ICs and paramfile (_mesh_gas); then --mesh 2 on this
-        one-card host must raise."""
+        (_mesh_fof_clustered), the --mesh run of the `gas` phase's
+        travis-hydro ICs and paramfile (_mesh_gas) and the --mesh resume
+        of the `stars` output with `bh`'s paramfile (_mesh_sub); then
+        --mesh 2 on this one-card host must raise.  It runs after `bh`,
+        whose directory holds the `stars` output."""
         import functools
         import os
         torch = self.torch
@@ -1584,12 +1629,14 @@ class Smoke:
             f.write(_GADGET_GAS.format(
                 ic=self.gas_run["ic"], out=out_gas,
                 outputs=self.mesh_gas_run[0], a=self.mesh_gas_run[1]))
+        pp_sub, out_sub = self._mesh_sub_setup()
         dev = "cpu" if self.rehearsal else None      # None: the card
         t = time.perf_counter()
         summ = gadget_main.run_gadget(
             pp, 2, mesh_devices=1, device=dev,
             rank_hook=functools.partial(
-                _mesh_rank_hook, then=((pp_fof, 7), (pp_gas, -1))),
+                _mesh_rank_hook, then=((pp_fof, 2, 7), (pp_gas, 2, -1),
+                                       (pp_sub, 1, -1))),
             mesh_timeout=300.0,
             join_timeout=max(self.budget - elapsed(), 60.0))
         t_mesh = time.perf_counter() - t
@@ -1659,7 +1706,7 @@ class Smoke:
         # the run forms no FOF group by a = 0.11: the --mesh catalogue is
         # checked on the run from cli's clustered PART_007 in the same rank
         for more in (self._mesh_fof_clustered(out_fof),
-                     self._mesh_gas(out_gas)):
+                     self._mesh_gas(out_gas), self._mesh_sub(out_sub)):
             for key, (n, a_, kw) in more.items():
                 shapes.setdefault(key, [0, a_, kw])[0] += n
         self.mesh_row = self._check_shapes(shapes, "mesh")
@@ -1859,6 +1906,163 @@ class Smoke:
         if not fp.get("converged") or not rec["sph_log"]:
             raise SmokeFailure("the --mesh 1 gas run ran no SPH or no IC "
                                "fixed point")
+        return rec["shapes"]
+
+    def _mesh_sub_setup(self):
+        """The fourth --mesh run's paramfile and output directory: `bh`'s
+        paramfile (BlackHoleOn with its seeding thresholds, the
+        UVFluctuationFile, ofjt10 winds, MetalReturnOn) to MESH_SUB_RUN's
+        end, with MESH_SUB_SF, resuming (RestartFlag 1) from a link to
+        the `stars` output that `bh` resumed from."""
+        import os
+        if self.bh_dir is None:
+            raise SmokeFailure("mesh needs the bh phase's directory")
+        runs = STARS_REHEARSAL_RUNS if self.rehearsal else STARS_RUNS
+        start = runs[0][0].count(",")
+        src = os.path.join(self.bh_dir, "output")
+        out = os.path.join(self.bh_dir, "mesh_output")
+        os.makedirs(out)
+        os.symlink(os.path.join(src, f"PART_{start:03d}"),
+                   os.path.join(out, f"PART_{start:03d}"))
+        with open(os.path.join(out, "LastSnapNum.txt"), "w") as f:
+            f.write(str(start))
+        # (the rehearsal's own thresholds after MESH_SUB_SF: the last
+        # value of a parameter holds)
+        extra = MESH_SUB_SF + (STARS_REHEARSAL + BH_REHEARSAL_SEEDING
+                               + MESH_SUB_REHEARSAL_FOF if self.rehearsal
+                               else BH_SEEDING)
+        pp = os.path.join(self.bh_dir, "p_mesh_sub.gadget")
+        with open(pp, "w") as f:
+            f.write(_GADGET_STARS.format(
+                ic=os.path.join(self.bh_dir, "IC", "IC"), out=out,
+                outputs=self.mesh_sub_run[0], a=self.mesh_sub_run[1])
+                .replace("BlackHoleOn = 0", "BlackHoleOn = 1") + extra
+                + f"UVFluctuationFile = {os.path.join(self.bh_dir, 'UVF')}\n")
+        self.mesh_sub_start = (src, start)
+        return pp, out
+
+    def _mesh_sub(self, out):
+        """The --mesh resume of star-small with every source but
+        reionization, run by the rank after the gas run, and the checks
+        of `stars` and `bh` that a --mesh run can show (it reads no gas,
+        star or BH block, ROADMAP C.4): stars formed by splits and whole
+        conversions (printed: at star-small's rates a row rarely forms
+        twice in the run, so whole conversions are the CPU tests'), wind
+        kicks (gas rows in the wind phase), the velocity
+        dispersion refreshed on a PM step, a BH seeded at the seed mass
+        and accreting, the feedback never lowering an entropy, the total
+        mass from the start's PART to the end's within 1e-6 (swallowed
+        gas lands on its BH), every field finite, every star and BH in a
+        PIG group.  Printed per step beside `bh`'s at the same a: the
+        Cooling, BH and MetalReturn seconds, each source stage's gathered
+        pack and collectives.  Returns the run's pair-kernel launch
+        shapes."""
+        import os
+        torch = self.torch
+        from shenqi_tpu_torch.io.fofio import load_fof
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.physics.blackhole import BHParams
+        rec = torch.load(os.path.join(out, "mesh_rank0.pt"),
+                         map_location=self.dev, weights_only=False)
+        self.mesh_launches += rec["launches"]
+        src, start = self.mesh_sub_start
+        amax = self.mesh_sub_run[1]
+        logs = rec["source_log"]
+        sf = [e for e in logs if e["stage"] == "sf"]
+        split = sum(e["split"] for e in sf)
+        whole = sum(e["whole"] for e in sf)
+        kicks = sum(e["kicks"] for e in sf)
+        vd = [e for e in logs if e["stage"] == "veldisp"]
+        bhs = [e for e in logs if e["stage"] == "bh"]
+        seeds = sum(n for _, _, n in rec["seed_log"])
+        say("mesh", f"the --mesh 1 resume of the stars output with bh's "
+            f"paramfile (RestartFlag 1, in the same rank): its set-up and run "
+            f"{rec['run_s']:.2f} s, {rec['step_count']} steps to a={amax}, "
+            f"snapshots at a = {rec['snapshots']}; p2p_blocked launches "
+            f"{rec['launches']}; stars formed {rec['star_count']} ({split} "
+            f"split, {whole} whole); wind kicks {kicks}, {rec['delayed']} gas"
+            f" rows in the wind phase at the end; veldisp passes {len(vd)} "
+            f"(iterations {[e['iterations'] for e in vd]}, ghosts "
+            f"{[e['pack'] for e in vd]}), gas sigma {rec['vdisp'][0]:.4g}-"
+            f"{rec['vdisp'][1]:.4g}; BHs seeded {seeds} at a = "
+            f"{[round(a_, 5) for _, a_, _ in rec['seed_log']]}, BH masses "
+            f"{rec['bh_mass'].tolist()}, mdot {rec['bh_mdot'].tolist()}; "
+            f"collectives " + ", ".join(
+                f"{k} {v}" for k, v in sorted(rec["counts"].items())))
+        say("mesh", "  its SPH passes: " + "; ".join(
+            f"step {r['step']}: {r['niter']} hsml iterations, density "
+            f"{r['density_s']:.3f} s, hydro {r['hydro_s']:.3f} s, "
+            f"{r.get('decoupled', 0)} decoupled" for r in rec["sph_log"]))
+        say("mesh", "  its star formation: " + "; ".join(
+            f"step {e['step']}: {e['active']} active gas rows, {e['on_eeos']}"
+            f" on the eEOS, densest {e['rho_max']:.3g} x the threshold, "
+            f"{e['split']} split + {e['whole']} whole, {e['kicks']} kicks"
+            for e in sf))
+        # per step beside bh's run at the same a
+        mine = _cpu_steps(os.path.join(out, "cpu.txt"))
+        mine.append((amax, rec["last_stages"]))
+        theirs = {round(a_, 5): st_ for a_, st_ in _cpu_steps(
+            os.path.join(src, "cpu.txt"))}
+        for i, (a_, st_) in enumerate(mine):
+            pk = ", ".join(f"{e['stage']} {e['pack']} rows {e['collectives']}"
+                           f" coll. {e['s']:.3f} s"
+                           for e in logs if e["step"] == i) or "none"
+            ref = theirs.get(round(a_, 5))
+            say("mesh", f"  step {i} at a={a_:.5f}: Cooling/BH/MetalReturn "
+                + "/".join(f"{st_.get(k, 0.0):.3f}" for k in (
+                    "Cooling", "BH", "MetalReturn"))
+                + " s (bh " + ("/".join(f"{ref.get(k, 0.0):.3f}" for k in (
+                    "Cooling", "BH", "MetalReturn")) + " s" if ref is not None
+                    else "no step at this a") + f"); source stages {pk}")
+        _, b0 = read_snapshot(os.path.join(src, f"PART_{start:03d}"))
+        snap = f"PART_{self.mesh_sub_run[0].count(','):03d}"
+        h1, b1 = read_snapshot(os.path.join(out, snap))
+        m0 = sum(float(np.sum(b["Mass"], dtype=np.float64))
+                 for b in b0.values())
+        m1 = sum(float(np.sum(b["Mass"], dtype=np.float64))
+                 for b in b1.values())
+        dm = abs(m1 / m0 - 1)
+        finite = rec["finite"] and all(
+            np.isfinite(v).all() for b in b1.values() for v in b.values()
+            if np.issubdtype(np.asarray(v).dtype, np.floating))
+        n_star = len(b1[4]["ID"]) if 4 in b1 else 0
+        n_bh = len(b1[5]["ID"]) if 5 in b1 else 0
+        pig = load_fof(os.path.join(out, snap.replace("PART", "PIG")))
+        lbt = (np.asarray(pig["LengthByType"]).sum(axis=0)
+               if len(pig["Mass"]) else np.zeros(6))
+        seed_m = np.float32(BHParams().SeedBlackHoleMass)
+        say("mesh", f"  at a={h1.Time:.5f}: total mass {m1:.9g} against "
+            f"{m0:.9g} at the start ({dm:.3e}, limit 1e-6); every field "
+            f"finite {finite}; {n_star} stars and {n_bh} BHs, the PIG's "
+            f"{int(lbt[4])} and {int(lbt[5])} in {len(pig['Mass'])} groups; "
+            f"BH feedback: smallest entropy change "
+            f"{min((e['dent_min'] for e in bhs), default=0.0):.4g}, rows "
+            f"heated {[e['heated'] for e in bhs]}, swallowed "
+            f"{[e['swallowed'] for e in bhs]}, mergers "
+            f"{[e['mergers'] for e in bhs]}")
+        fails = []
+        if not (rec["star_count"] and split + whole):
+            fails.append(f"stars formed {rec['star_count']} ({split} split, "
+                         f"{whole} whole)")
+        if not (kicks and rec["delayed"]):
+            fails.append(f"wind kicks {kicks}, delayed rows {rec['delayed']}")
+        if not (vd and rec["vdisp"][1] > 0):
+            fails.append("no velocity dispersion on a PM step")
+        if not (seeds and len(rec["bh_mass"])
+                and (rec["bh_mass"] >= seed_m).all()
+                and (rec["bh_mdot"] > 0).any()):
+            fails.append("no BH seeded at the seed mass and accreting")
+        if any(e["dent_min"] < 0 for e in bhs):
+            fails.append("the BH feedback lowered an entropy")
+        if not dm < 1e-6:
+            fails.append(f"total mass off by {dm:.3e}")
+        if not finite:
+            fails.append("a field is not finite")
+        if not (int(lbt[4]) == n_star and int(lbt[5]) == n_bh
+                or self.rehearsal):
+            fails.append("a star or BH lies outside the PIG's groups")
+        if fails:
+            raise SmokeFailure("the --mesh 1 subgrid run: " + "; ".join(fails))
         return rec["shapes"]
 
     # ------------------------------------------------------------ dmsmall
@@ -2395,8 +2599,10 @@ class Smoke:
 
     def gas128(self):
         """travis-hydro at Ngrid 128 (2 x 128^3 particles): genic_main, the
-        IC entropy fixed point and the first steps, then one all-active
-        SPH pass under torch.profiler."""
+        IC entropy fixed point and the first loop pass.  (Its all-active
+        SPH pass timed by piece, and before that under torch.profiler,
+        went for the budget; PERF.md keeps their
+        numbers.)"""
         import tempfile
         tmp = tempfile.mkdtemp(prefix="shenqi_gas128_")
         try:
@@ -2444,59 +2650,6 @@ class Smoke:
             raise SmokeFailure(f"the 128^3 IC entropy fixed point did not "
                                f"converge: {fp}")
         self.gas128_row = self._check_shapes(rec.shapes, "gas128")
-        self._sph_profile(sim)
-
-    def _sph_profile(self, sim, phase="gas128"):
-        """One all-active density + hydro pass of a run's end state on the
-        host clock, by piece.  (Its torch.profiler pass by operation group
-        went for the `reion` and `lc` phases' budget; PERF.md keeps its
-        earlier numbers.)"""
-        if self.rehearsal:
-            say(phase, "SPH profile skipped in the CPU rehearsal")
-            return
-        from shenqi_tpu_torch.sph import stencil_density as sd
-        from shenqi_tpu_torch.sph import stencil_hydro as sh
-        gp = sim.gas_physics
-
-        def one_pass():
-            self._sync()
-            t = time.perf_counter()
-            gp.density_hydro(sim, sim.gas)
-            self._sync()
-            return (time.perf_counter() - t) * 1e3
-
-        walks = []      # (targets, sub) of each stencil_density_walk call
-
-        def note(fn, *a, **kw):
-            walks.append((a[1].shape[0], kw.get("sub", 32)))
-            return fn(*a, **kw)
-
-        # host clock with a synchronize around each piece: the pair passes
-        # (_sph_eval, _hydro_eval, _hydro_long_eval) against the stencil
-        # bookkeeping (sub-blocks, classification, tables)
-        pieces = [(sd, "_sph_eval"), (sh, "_hydro_eval"),
-                  (sh, "_hydro_long_eval"), (sd, "_sph_count"),
-                  (sh, "_hydro_count"), (sd, "build_grid_sph"),
-                  (sh, "build_grid_hydro")]
-        wraps = [_Wrap(m, n, sync=self._sync) for m, n in pieces]
-        with _Wrap(sd, "stencil_density_walk", through=note):
-            for w in wraps:
-                w.__enter__()
-            try:
-                split_wall = one_pass()
-            finally:
-                for w in reversed(wraps):
-                    w.__exit__(None, None, None)
-        n_cover = sum(1 for _, sub in walks if sub == 1)
-        pair = sum(w.seconds for w in wraps[:3]) * 1e3
-        rest = split_wall - sum(w.seconds for w in wraps) * 1e3
-        say(phase, f"all-active SPH pass by piece (a synchronize around "
-            f"each): {split_wall:.1f} ms = "
-            + ", ".join(f"{n} {w.seconds * 1e3:.1f} ms in {len(w.each)} "
-                        f"calls" for (_, n), w in zip(pieces, wraps))
-            + f", the rest (predictions, the hsml update, scatters, "
-            f"pressure, Balsara) {rest:.1f} ms; the pair passes "
-            f"{pair:.1f} ms, {100 * pair / split_wall:.1f}% of the pass")
 
     # -------------------------------------------------------------- stars
     def stars(self):
@@ -3021,12 +3174,12 @@ class Smoke:
     # -------------------------------------------------------------- reion
     def reion(self):
         """star-small with every subgrid switch, resumed with RestartFlag 1
-        from the `bh` run's output (a = 0.119) to REION_RUNS' outputs
-        0.1193 and 0.1196 with FOF: BlackHoleOn with BH_SEEDING,
+        from the `bh` run's output (a = 0.119) to REION_RUNS' output
+        0.1193 with FOF: BlackHoleOn with BH_SEEDING,
         HeliumReionizationOn with a ReionHistFile and ExcursionSetReionOn
         with a J21CoeffFile (both written by tools/ at the start of the
         script) and WritePlaneOn.
-        Each output ends a PM step, whose FOF runs the QSO bubbles; the
+        The output ends a PM step, whose FOF runs the QSO bubbles; the
         excursion pass follows in that step.  The cuts are
         REION_SWITCHES'."""
         if self.bh_dir is None:
@@ -3210,8 +3363,10 @@ class Smoke:
         if not exc[-1][4]:
             raise SmokeFailure("no gas row read J21 > 0: the per-row J21 "
                                "rates did not run")
-        n_out = len(runs[0][0].split(","))
-        want = set(range(n_out - 2, n_out))
+        # the planes of the outputs past the `bh` run's
+        n_bh = len((BH_REHEARSAL_RUNS if self.rehearsal
+                    else BH_RUNS)[0][0].split(","))
+        want = set(range(n_bh, len(runs[0][0].split(","))))
         for snapnum, a, ntot, files in planes:
             hdrs = [read_fits_plane(f_)[0] for f_ in files]
             npart = [int(h["NPART"]) for h in hdrs]
@@ -3818,10 +3973,14 @@ def _mesh_rank_hook(event, sim, outdir, then=()):
     calls, exchanges, SPH passes and IC fixed point, collective tallies,
     tree depth, snapshots and last stages, saved to mesh_rank<r>.pt in
     the run's output directory for the phase.  `then`, a list of
-    (paramfile, SnapNum): after that, the rank runs gadget_main's rank
-    body on the first with RestartFlag 2 in the same process group (one
+    (paramfile, RestartFlag, SnapNum): after that, the rank runs
+    gadget_main's rank body on the first in the same process group (one
     spawn and NCCL start for every run), this hook recording it in its
-    own output directory and going on with the rest."""
+    own output directory and going on with the rest.  A run with gas
+    also saves its source stages (SlabSimulation.source_log, seed_log),
+    the stars it formed and its end state: the gas rows in the wind
+    phase, the gas's velocity dispersion, the BH rows' masses and rates,
+    and whether every row's field is finite."""
     import torch
     from shenqi_tpu_torch.gravity import stencil as st
     from shenqi_tpu_torch.ops.p2p import p2p_blocked
@@ -3840,7 +3999,22 @@ def _mesh_rank_hook(event, sim, outdir, then=()):
         _MESH_HOOK["t0"] = time.perf_counter()
         return
     st.p2p_blocked = _MESH_HOOK["kern"]
-    torch.save({"launches": p2p_blocked.launches,
+    sub = {}
+    g, p = sim.gas, sim.particles
+    if g is not None:
+        bh = (p.mask & (p.ptype == 5)).cpu()
+        ng = g.ngas
+        sub = {"source_log": sim.source_log, "seed_log": sim.seed_log,
+               "star_count": sim.star_count,
+               "delayed": int((g.delay_time > 0).sum()),
+               "vdisp": ((float(g.vdisp.min()), float(g.vdisp.max()))
+                         if ng else (0.0, 0.0)),
+               "bh_mass": g.bh_mass.cpu()[bh].numpy(),
+               "bh_mdot": g.bh_mdot.cpu()[bh].numpy(),
+               "finite": all(bool(torch.isfinite(v).all())
+                             for v in sim._rows().values()
+                             if v.is_floating_point())}
+    torch.save({"launches": p2p_blocked.launches, **sub,
                 "shapes": _MESH_HOOK["shapes"],
                 "run_s": time.perf_counter() - _MESH_HOOK["t0"],
                 "force_log": sim.force_log,
@@ -3856,8 +4030,8 @@ def _mesh_rank_hook(event, sim, outdir, then=()):
     if then:
         import functools
         from shenqi_tpu_torch.cli import gadget_main
-        (pp, snapnum), rest = then[0], tuple(then[1:])
-        gadget_main._slab_rank(cc.rank(), sim.device, pp, 2, snapnum,
+        (pp, flag, snapnum), rest = then[0], tuple(then[1:])
+        gadget_main._slab_rank(cc.rank(), sim.device, pp, flag, snapnum,
                                10 ** 9, False,
                                functools.partial(_mesh_rank_hook, then=rest))
 
@@ -4048,7 +4222,7 @@ def main(argv) -> int:
     try:
         smoke.start_tables()
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
-                      "dmsmall", "nu", "gas", "mesh", "gas128", "stars", "bh",
+                      "dmsmall", "nu", "gas", "gas128", "stars", "bh", "mesh",
                       "reion", "lc", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:

@@ -25,10 +25,14 @@ restore the gas, star and BH state), LightconeOn (the LIGHTCONE
 bigfile) and WritePlaneOn (FITS potential planes at each snapshot FOF).
 `--mesh N` runs the slab loop on N spawned ranks (NCCL on cuda:0..N-1,
 gloo with --device cpu; _spawn_slab, _run_slab): dark matter and, with
-HydroOn, adiabatic SPH with the gas blocks in its snapshots; a resume
-starts its gas from InitGasTemp and the IC fixed point, as the JAX
---mesh run does.  What the port does not have yet is refused with the
-ROADMAP item that brings it: on --mesh the subgrid switches (A.9.3),
+HydroOn, SPH with the gas blocks in its snapshots, and CoolingOn,
+StarformationOn, WindOn, MetalReturnOn, BlackHoleOn (the seeding FOF on
+PM steps, over the ranks), MetalCoolFile and UVFluctuationFile; like the
+JAX --mesh run it writes no star or BH blocks, sfr.txt or
+blackholes.txt, and a resume reads no gas, star or BH block: its gas
+starts from InitGasTemp and the IC fixed point, its stars with birth_a 0
+and its BHs with bh_mass 0 (ROADMAP C.4).  What the port does not have
+yet is refused with the ROADMAP item that brings it: on --mesh
 reionization, lightcones and planes (A.9.4) and `--mesh AxB` (A.9.5);
 RestartFlag 99 (A.10) and the erfc short-range window (A.12).
 """
@@ -198,11 +202,9 @@ def _write_power(fn, kk, pk, nm, d1):
 def _refuse_unported(ps, restart_flag, mesh_devices):
     """What the run path needs that the port has not ported (FOF and
     P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
-    first two).  `--mesh N` runs the slab loop with dark matter and
-    adiabatic gas (ROADMAP A.9.1-A.9.2); what it does not have yet is
-    refused with its item."""
-    on = [k for k in ("StarformationOn", "CoolingOn", "BlackHoleOn",
-                      "WindOn", "MetalReturnOn") if ps.get_int(k)]
+    first two).  `--mesh N` runs the slab loop with dark matter, gas and
+    the subgrid sources (ROADMAP A.9.1-A.9.3); what it does not have yet
+    is refused with its item."""
     reion = [k for k in ("HeliumReionizationOn", "QSOLightupOn",
                          "ExcursionSetReionOn", "LightconeOn",
                          "WritePlaneOn") if ps.get_int(k)]
@@ -211,8 +213,6 @@ def _refuse_unported(ps, restart_flag, mesh_devices):
         (restart_flag == 99, "RestartFlag 99 (the force tests)", "A.10"),
         (mesh and "x" in str(mesh_devices),
          f"--mesh {mesh_devices} (the 2-D PM processor grid)", "A.9.5"),
-        (mesh and bool(on), f"--mesh with {', '.join(on)} (the subgrid "
-         "sources on slabs)", "A.9.3"),
         (mesh and bool(reion), f"--mesh with {', '.join(reion)}",
          "A.9.4")]
     if restart_flag not in (3, 4):
@@ -1066,10 +1066,10 @@ def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
                                restart_flag, snapnum, icfile)
     gas = None
     if (ptype == 0).any() and ps.get_int("HydroOn"):
-        # the SPH configuration and u0 from InitGasTemp at the start's
-        # a, also on a resume: the JAX --mesh run starts its gas from u0
-        # and the fixed point whatever the snapshot holds
-        # (gadget_main.py:876-907; ROADMAP C.4)
+        # the SPH and subgrid configuration and u0 from InitGasTemp at
+        # the start's a, also on a resume: the JAX --mesh run starts its
+        # gas from u0 and the fixed point whatever the snapshot holds, and
+        # reads no star or BH block (gadget_main.py:876-907; ROADMAP C.4)
         gas = _gas_physics(ps, cp, units, atime, mass[ptype == 0],
                            hdr.BoxSize)
     if rank_hook is not None:
@@ -1090,14 +1090,16 @@ def _slab_rank(rank, dev, paramfile, restart_flag, snapnum, max_steps,
 def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
               nmesh, outdir, max_steps, nu_table, resumed, dev, gas=None):
     """The slab loop of one rank with its outputs (gadget_main.py:272-724
-    of the JAX package): dark matter, and with gas = (GasPhysics, u0)
-    adiabatic SPH (the types apart, SlabSimulation.from_species); PART
-    snapshots written by every rank (io/sharded_io, with the gas blocks),
-    P(k) at each PM step and snapshot, the slab FOF of every type with its
-    distributed catalogue and the PIG at snapshots (SnapshotWithFOF; the
-    PIG holds the group table, as the JAX --mesh run writes it, without
-    member particles), cpu.txt, HCI and the neutrino response.  Rank 0
-    writes the files no other rank shares."""
+    of the JAX package): dark matter, and with gas = (GasPhysics, u0) SPH
+    and the subgrid sources the GasPhysics switches on (the types apart,
+    SlabSimulation.from_species); PART snapshots written by every rank
+    (io/sharded_io, with the gas blocks), P(k) at each PM step and
+    snapshot, the slab FOF of every type with its distributed catalogue
+    and the PIG at snapshots (SnapshotWithFOF; the PIG holds the group
+    table, as the JAX --mesh run writes it, without member particles),
+    with BlackHoleOn the seeding FOF on PM steps (_seed_on_pm_step),
+    cpu.txt, HCI and the neutrino response.  Rank 0 writes the files no
+    other rank shares."""
     from ..fof.slab import compile_groups_slab_distributed, fof_label_slab
     from ..io.sharded_io import save_snapshot_sharded_multi
     from ..parallel import collectives as cc
@@ -1216,12 +1218,84 @@ def _run_slab(ps, hdr, cp, units, timeline, tsp, gravity_kw, arrays,
         wt.reset_step()
 
     sim.on_step = on_step
+    gp = sim.gas_physics
+    if gp is not None and gp.bh_on and gp.bhpar is not None:
+        sim.on_pm_step = _seed_on_pm_step(
+            ps, atime, b_link, boxsize, ndev, ids64, wt)
     try:
         sim.run(max_steps=max_steps)
     finally:
         if fd_cpu is not None:
             fd_cpu.close()
     return sim
+
+
+def _seed_on_pm_step(ps, atime, b_link, boxsize, ndev, ids64, wt):
+    """The seeding FOF of a slab run on PM steps (gadget_main.py:625-716
+    of the JAX package, its BH half): at a >= the next check, which then
+    moves to a * TimeBetweenSeedingSearch, the slab FOF and its
+    distributed catalogue; in each group seed_black_holes picks, the
+    densest alive gas row becomes a BH, found over the ranks from
+    all-reduced values (the largest density, then the smallest ID among
+    the rows at it), so every rank agrees on every seed."""
+    from ..fof.slab import compile_groups_slab_distributed, fof_label_slab
+    from ..parallel import collectives as cc
+    next_check = [atime]
+    seed_factor = ps.get_double("TimeBetweenSeedingSearch")
+    min_len = ps.get_int("FOFHaloMinLength")
+
+    def on_pm_step(s):
+        a = s.atime()
+        if a < next_check[0]:
+            return
+        next_check[0] = a * seed_factor
+        p, g, gp = s.particles, s.gas, s.gas_physics
+        mass_out = torch.where(p.mask, p.mass, 0.0)
+        glabel, _ = fof_label_slab(
+            {"ipos": p.ipos, "mass": mass_out, "pid": ids64(p)}, b_link,
+            boxsize, ndev, nlevels=s.gravity.tree_nlevels, cuts_in=s.cuts_fp)
+        groups, _ = compile_groups_slab_distributed(
+            glabel, {"ipos": s.output_ipos(), "vel": p.vel, "mass": mass_out,
+                     "ptyp": p.ptype, "pid": ids64(p)},
+            boxsize, ndev, min_length=min_len)
+        wt.measure("FOF")
+        if not groups.ngroups:
+            return
+        to_seed = np.asarray(seed_black_holes(
+            groups, groups.mass_by_type[:, 4], groups.length_by_type[:, 5],
+            gp.bhpar), np.int64)
+        if not to_seed.size:
+            return
+        # the alive rows in the catalogue's order; the gas rows are the
+        # prefix, their density the gas state's
+        alive = torch.nonzero(mass_out > 0).squeeze(1).cpu().numpy()
+        gid = groups.group_id
+        ng = g.ngas
+        dens = np.full(len(alive), -np.inf)
+        isg = (alive < ng) & (p.ptype.cpu().numpy()[alive] == 0)
+        dens[isg] = g.density.cpu().numpy()[alive[isg]]
+        pid = ids64(p).cpu().numpy()[alive]
+        best_d = np.full(len(to_seed), -np.inf)
+        for j, gi in enumerate(to_seed):
+            c = (gid == gi + 1) & isg
+            if c.any():
+                best_d[j] = dens[c].max()
+        dev = s.device
+        dmax = cc.all_max(torch.from_numpy(best_d).to(dev)).cpu().numpy()
+        big = np.iinfo(np.int64).max
+        best_id = np.full(len(to_seed), big, np.int64)
+        for j, gi in enumerate(to_seed):
+            c = (gid == gi + 1) & isg & (dens == dmax[j])
+            if c.any():
+                best_id[j] = pid[c].min()
+        win = cc.all_min(torch.from_numpy(best_id).to(dev)).cpu().numpy()
+        win = win[win != big]
+        rows = alive[isg & np.isin(pid, win)]
+        s._seed_bh_rows(rows)
+        if cc.rank() == 0 and len(win):
+            print(f"Seeded {len(win)} black holes")
+
+    return on_pm_step
 
 
 def main(argv=None):

@@ -11,7 +11,10 @@ the port's GasState (the star, wind and black-hole fields too: BH rows
 are ptype 5 in the particles and carry `bh_mass`, `bh_mdot`), and
 `bh_params_from` a JAX BHParams into the port's.  `key_from_numpy`
 turns a JAX GasPhysics.rng_key into the port's threefry key, so that
-both packages go on drawing one stream.  All six are exact.
+both packages go on drawing one stream.  `slab_rows_from_numpy` turns a
+JAX SlabSimulation's `fields` (its row state under the JAX slab names)
+into the port's slab row columns of one rank (SlabSimulation._rows,
+which SlabSimulation._set_rows takes).  All seven are exact.
 """
 
 from __future__ import annotations
@@ -113,3 +116,56 @@ def key_from_numpy(key) -> tuple:
     array of two uint32 words (GasPhysics.rng_key)."""
     k = np.asarray(key, dtype=np.uint32).reshape(2)
     return (int(k[0]), int(k[1]))
+
+
+# the JAX slab loop's row names (parallel/slab_sim.py:212-357 of the JAX
+# package) -> the port's ParticleData and GasState names
+_SLAB_NAMES = {
+    "ipos": "ipos", "vel": "vel", "mass": "mass", "id_lo": "id_lo",
+    "id_hi": "id_hi", "ptyp": "ptype", "tbin": "timebin", "hsml": "hsml",
+    "gacc": "grav_accel", "gpm": "grav_pm", "oldacc": "old_acc",
+    "entropy": "entropy", "density": "density", "egywt": "egy_wt_density",
+    "dhsml_egy": "dhsml_egy", "divv": "div_vel", "curlv": "curl_vel",
+    "hacc": "hydro_accel", "dts": "dt_entropy", "mvsig": "max_signal_vel",
+    "dth": "dt_hsml", "grho": "gradrho_mag", "ne": "ne",
+    "met": "metallicity", "sfr": "sfr", "delay": "delay_time",
+    "gen": "generation", "vdsp": "vdisp", "heiii": "heiii",
+    "j21": "local_j21", "zrei": "zreion_p", "birtha": "birth_a",
+    "enr": "last_enrich_myr", "m0": "mass0", "tret": "total_returned",
+    "bhm": "bh_mass", "bhmd": "bh_mdot", "smet": "star_metallicity"}
+
+
+def slab_rows_from_numpy(fields: dict, rank: int, ndev: int, cuts_in=None,
+                         device=None) -> dict:
+    """The port's slab row columns of rank `rank` of `ndev` from a JAX
+    slab `fields` dict as numpy: the alive rows (mass > 0) whose x lies in
+    the rank's slab (uniform slabs, or the cuts `cuts_in`), every JAX
+    column under the port's name (_SLAB_NAMES), uint32 words as int32
+    bits; `mask` true and `potential` zero.  The JAX package's ptype,
+    time bin and generation are int32, the port's int8, int8, int32."""
+    from .parallel.domain import slab_index
+    dev = resolve_device(device)
+    mass = np.asarray(fields["mass"], np.float32)
+    ipos = np.asarray(fields["ipos"]).view(np.uint32)
+    x = torch.from_numpy(u32_numpy_to_i32(ipos[:, 0].copy()))
+    mine = (mass > 0) & (slab_index(x, ndev, cuts_in).numpy() == rank)
+    rows = {}
+    for jax_name, name in _SLAB_NAMES.items():
+        if jax_name not in fields:
+            continue
+        a = np.asarray(fields[jax_name])[mine]
+        if jax_name in ("ipos", "id_lo", "id_hi"):
+            a = u32_numpy_to_i32(a.astype(np.uint32))
+        elif name in ("ptype", "timebin"):
+            a = a.astype(np.int8)
+        elif name == "generation":
+            a = a.astype(np.int32)
+        elif name == "heiii":
+            a = a.astype(np.bool_)
+        else:
+            a = a.astype(np.float32)
+        rows[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = int(mine.sum())
+    rows["mask"] = torch.ones(n, dtype=torch.bool, device=dev)
+    rows["potential"] = torch.zeros(n, dtype=torch.float32, device=dev)
+    return rows

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import math
 
 import torch
 import torch.distributed as dist
@@ -125,7 +126,8 @@ def pack_rows(fields: dict):
     dtypes are bit views; 8-byte ones two columns; smaller ones widen."""
     cols, spec = [], []
     for name, t in fields.items():
-        flat = t.reshape(t.shape[0], -1).contiguous()
+        # the row width spelt out: a pack of no rows has no -1 to infer
+        flat = t.reshape(t.shape[0], math.prod(t.shape[1:])).contiguous()
         size = flat.element_size()
         if size == 4:
             c = flat.view(torch.int32)

@@ -178,7 +178,8 @@ def winds_star_feedback(key, star_ipos, star_hsml, star_mass,
                         star_vdisp, gas_ipos, gas_mass, gas_vel,
                         gas_entropy, gas_density, gas_delay,
                         gas_alive, boxsize, atime, a3inv,
-                        wp: WindParams, pair_block: int = _PAIR_BLOCK):
+                        wp: WindParams, gas_pids=None, star_pids=None,
+                        total_weight=None, pair_block: int = _PAIR_BLOCK):
     """Non-subgrid winds: new stars kick neighbouring gas
     (sfr_wind_feedback_ngbiter, winds.cpp:514-566).
 
@@ -189,9 +190,16 @@ def winds_star_feedback(key, star_ipos, star_hsml, star_mass,
     gains an isotropic random velocity of magnitude v, thermal energy
     utherm, and a decoupling delay time.
 
-    The draws are the JAX package's without ids: jax.random.uniform of
-    the whole [Ngas, Nstar] shape and two of [Ngas] from split(key, 3)
-    (the JAX `source_terms` passes no ids; ROADMAP C.4).  Gas rows are
+    Without ids the draws are the JAX package's full-shape ones:
+    jax.random.uniform of the whole [Ngas, Nstar] shape and two of
+    [Ngas] from split(key, 3) (the JAX `source_terms` passes no ids;
+    ROADMAP C.4).  With gas_pids and star_pids (int32 bit patterns of
+    the low id words) every draw is keyed by (step salt, id) through
+    idhash_uniform, salt = bits(key, (2,)): the hit of a pair by the
+    mixed (gas, star) ids, the direction by the gas id, so the draws do
+    not depend on the row layout or the rank count (the slab winds).
+    total_weight: the per-star eligible gas mass from the caller (the
+    slab winds sum it over ranks); summed here when None.  Gas rows are
     taken `pair_block` pairs at a time, each block with its counters of
     the whole shape.  Returns (vel, entropy, delay_time).
     """
@@ -210,33 +218,48 @@ def winds_star_feedback(key, star_ipos, star_hsml, star_mass,
                           boxsize)
         return r2, (r2 < h2) & eligible[g0:g1, None]
 
-    # pass 1: eligible gas mass inside each star's hsml
-    total_weight = torch.zeros(ns, dtype=torch.float32, device=dev)
-    for g0 in range(0, ng, rows):
-        g1 = min(g0 + rows, ng)
-        _, inside = block_r2(g0, g1)
-        total_weight += torch.sum(
-            torch.where(inside, gas_mass[g0:g1, None], 0.0), dim=0)
+    if total_weight is None:
+        # pass 1: eligible gas mass inside each star's hsml
+        total_weight = torch.zeros(ns, dtype=torch.float32, device=dev)
+        for g0 in range(0, ng, rows):
+            g1 = min(g0 + rows, ng)
+            _, inside = block_r2(g0, g1)
+            total_weight += torch.sum(
+                torch.where(inside, gas_mass[g0:g1, None], 0.0), dim=0)
     v, windeff, utherm = wind_params_for(star_vdisp, atime, wp)
     pstar = windeff * star_mass / torch.clamp(total_weight, min=1e-35)
     pok = (total_weight > 0) & (v > 0)
 
-    k1, k2, k3 = threefry.split(key, 3)
+    if gas_pids is not None:
+        salt = threefry.bits(key, (2,))
+        s0, s1 = int(salt[0]), int(salt[1])
+        gpid = gas_pids.long() & _M32
+        spid = star_pids.long() & _M32
+    else:
+        k1, k2, k3 = threefry.split(key, 3)
     kicked = torch.zeros(ng, dtype=torch.bool, device=dev)
     best = torch.zeros(ng, dtype=torch.int64, device=dev)
     for g0 in range(0, ng, rows):
         g1 = min(g0 + rows, ng)
         r2, inside = block_r2(g0, g1)
         p = torch.where(inside & pok[None, :], pstar[None, :], 0.0)
-        u_hit = threefry.uniform(k1, (g1 - g0, ns), start=g0 * ns,
-                                 device=dev)
+        if gas_pids is not None:
+            u_hit = idhash_uniform(
+                s0, _mix32(gpid[g0:g1, None], spid[None, :]), 0)
+        else:
+            u_hit = threefry.uniform(k1, (g1 - g0, ns), start=g0 * ns,
+                                     device=dev)
         hit = u_hit < p
         # nearest hitting star per gas particle
         r2m = torch.where(hit, r2, float("inf"))
         best[g0:g1] = torch.argmin(r2m, dim=1)
         kicked[g0:g1] = torch.any(hit, dim=1)
-    u_th = threefry.uniform(k2, (ng,), device=dev)
-    u_ph = threefry.uniform(k3, (ng,), device=dev)
+    if gas_pids is not None:
+        u_th = idhash_uniform(s1, gpid, 1)
+        u_ph = idhash_uniform(s1, gpid, 2)
+    else:
+        u_th = threefry.uniform(k2, (ng,), device=dev)
+        u_ph = threefry.uniform(k3, (ng,), device=dev)
     vkick = v[best]
     ukick = utherm[best]
 

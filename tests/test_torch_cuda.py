@@ -770,3 +770,111 @@ def test_slab_sph_nccl_rank_equals_single_device(tmp_path):
     assert out["niter"][0] == out["niter"][1], out
     assert out["hsml"] < 3e-5 and out["rho"] < 3e-5, out
     assert out["acc"] < 1e-4, out
+
+
+def _slab_sources(dev):
+    """The slab source stage of tests/test_torch_slab_subgrid.py's sf
+    state with ofjt10 winds, black holes and old stars as well, on `dev`
+    (the state forced by id in the port itself, as that file forces the
+    JAX one):
+    one _gas_source_terms, one _slab_blackhole_step and one
+    _slab_metal_return.  Returns the alive rows on the host, by id."""
+    import os
+    import test_torch_slab_subgrid as SS
+    from shenqi_tpu_torch.core.integrate import TimestepParams
+    from shenqi_tpu_torch.core.timeline import Timeline
+    from shenqi_tpu_torch.parallel.slab_sim import SlabSimulation
+    from shenqi_tpu_torch.physics.blackhole import BHParams
+    from shenqi_tpu_torch.physics.metal_return import MetalReturn
+    from shenqi_tpu_torch.physics.winds import WIND_MODEL_OFJT10, WindParams
+    from shenqi_tpu_torch.simulation_gas import GasPhysics
+    from shenqi_tpu_torch.utils import threefry
+    from shenqi_tpu_torch.utils.constants import GAMMA_MINUS1
+    a0 = SS.SETUP["sf"][0]
+    a3inv = 1.0 / a0 ** 3
+    ph = SS._physics("sf", SS._torch_mods())
+    sp = ph["sp"]
+    wp = WindParams(WindModel=WIND_MODEL_OFJT10, WindFreeTravelLength=20.0)
+    wp.init(sp.FactorSN, sp.EgySpecSN, sp.PhysDensThresh,
+            ph["units"].UnitTime_in_s)
+    ydir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data_yields")
+    gp = GasPhysics(cooling_on=True, sfr_on=True, winds_on=True,
+                    coolpar=ph["coolpar"], coolunits=ph["cu"], sfrpar=sp,
+                    windpar=wp, metal_return_on=True,
+                    metals=MetalReturn.load(ydir), bh_on=True,
+                    bhpar=BHParams(**SS.BH), bh_dynfric_on=True,
+                    rng_key=threefry.PRNGKey(7))
+    sim = SlabSimulation.from_species(
+        SS._species("sf"), ph["cp"], SS.BOX, SS.NMESH,
+        Timeline.setup([a0 + 0.01], a0, a0 + 0.01), a0, gas_u0=100.0,
+        tsp=TimestepParams(), gas_physics=gp, device=dev)
+    r = dict(sim._rows())
+    gas = r["ptype"] == 0
+    idl = r["id_lo"].long()
+    dens = torch.where(idl % 2 == 0, 20.0, 0.01) * sp.PhysDensThresh / a3inv
+    dens = torch.where(gas, dens, 0.0).to(torch.float32)
+    u0 = sp.temp_to_u * 1e4
+    ent = u0 * GAMMA_MINUS1 / torch.clamp(dens * a3inv,
+                                          min=1e-35) ** GAMMA_MINUS1
+    star = gas & (idl % 16 == 3)
+    r.update(density=dens, egy_wt_density=dens,
+             entropy=torch.where(gas, ent, r["entropy"]),
+             hsml=torch.where(gas, 180.0, r["hsml"]),
+             vdisp=torch.where(gas, 120.0, 0.0),
+             ptype=torch.where(star, 4, r["ptype"]).to(torch.int8),
+             birth_a=torch.where(star, 0.1, r["birth_a"]),
+             mass0=torch.where(star, r["mass"], r["mass0"]),
+             star_metallicity=torch.where(star, 0.01, 0.0))
+    sim._set_rows(r)
+    sim._seed_bh_rows(torch.nonzero((sim.particles.ptype == 0)
+                                    & (sim.particles.id_lo % 64 == 0))
+                      .squeeze(1).cpu().numpy())
+    sim._gas_source_terms(1e-2)
+    sim._slab_blackhole_step(5.0)
+    sim._slab_metal_return()
+    out = {k: v[sim._rows()["mask"]].cpu().numpy()
+           for k, v in sim._rows().items()}
+    ids = ((out["id_hi"].view(np.uint32).astype(np.uint64) << np.uint64(32))
+           | out["id_lo"].view(np.uint32).astype(np.uint64))
+    o = np.argsort(ids)
+    res = {k: v[o] for k, v in out.items()}
+    res["id"] = ids[o]
+    res["stars"] = sim.star_count
+    res["pack"] = np.array([(e["stage"], e["pack"]) for e in sim.source_log])
+    return res
+
+
+def _nccl_sources_body(rank, dev, out):
+    """One NCCL rank's slab source stage (module level: spawned); its rows
+    go back through an .npz (run_ranks returns small values only)."""
+    from shenqi_tpu_torch.parallel import collectives as cc
+    np.savez(out, **_slab_sources(dev))
+    return {"backend": cc.backend()}
+
+
+@pytest.mark.cuda
+def test_slab_sources_nccl_rank_equals_cpu(tmp_path):
+    """One NCCL rank's slab source stage (star formation with splits,
+    ofjt10 winds over the gathered stars, a BH step with swallows and
+    dynamical friction, the metal return) on the card against the same
+    stage in one CPU process: ids, types, the stars formed and the packs
+    identical; mass, velocity, entropy, metallicity and the BH masses
+    within 1e-4 of each column's largest value (the cooling and kernel
+    sums in f32 on two devices)."""
+    _card()
+    from shenqi_tpu_torch.parallel.launch import run_ranks
+    out = str(tmp_path / "card.npz")
+    ret = run_ranks(_nccl_sources_body, 1, (out,), "cuda",
+                    str(tmp_path / "store"), 120.0, 600.0)
+    card = dict(np.load(out))
+    cpu = _slab_sources("cpu")
+    assert ret["backend"] == "nccl"
+    assert cpu["stars"] > 0 and card["stars"] == cpu["stars"]
+    np.testing.assert_array_equal(card["pack"], cpu["pack"])
+    np.testing.assert_array_equal(card["id"], cpu["id"])
+    np.testing.assert_array_equal(card["ptype"], cpu["ptype"])
+    assert (cpu["ptype"] == 5).any() and (cpu["delay_time"] > 0).any()
+    for k in ("mass", "vel", "entropy", "metallicity", "bh_mass", "bh_mdot"):
+        a, b = card[k].astype(np.float64), cpu[k].astype(np.float64)
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30), k

@@ -109,21 +109,26 @@ def test_mesh_refusals(ic, tmp_path, monkeypatch):
     a rank count the run cannot take raises, before any rank starts."""
     from shenqi_tpu_torch.parallel.slab_sim import SlabSimulation
     tmp, icpath = ic
+    # the subgrid switches run on --mesh (A.9.3); reionization, lightcones
+    # and planes (A.9.4), the 2-D grid (A.9.5), the force tests (A.10)
+    # and the erfc window (A.12) are refused, with a subgrid switch too
     cases = [
-        ("StarformationOn = 1\n", 2, "StarformationOn.*A.9.3"),
-        ("CoolingOn = 1\nBlackHoleOn = 1\n", 2, "CoolingOn, BlackHoleOn.*A.9.3"),
-        ("WindOn = 1\n", 2, "WindOn.*A.9.3"),
-        ("MetalReturnOn = 1\n", 2, "MetalReturnOn.*A.9.3"),
-        ("HeliumReionizationOn = 1\n", 2, "--mesh with Helium.*A.9.4"),
-        ("ExcursionSetReionOn = 1\n", 2, "ExcursionSetReionOn.*A.9.4"),
-        ("LightconeOn = 1\n", 2, "LightconeOn.*A.9.4"),
-        ("WritePlaneOn = 1\n", 2, "WritePlaneOn.*A.9.4"),
-        ("", "2x2", "--mesh 2x2.*A.9.5")]
-    for extra, mesh, match in cases:
+        ("HeliumReionizationOn = 1\n", 2, 2, "--mesh with Helium.*A.9.4"),
+        ("QSOLightupOn = 1\n", 2, 2, "--mesh with QSOLightupOn.*A.9.4"),
+        ("ExcursionSetReionOn = 1\n", 2, 2, "ExcursionSetReionOn.*A.9.4"),
+        ("LightconeOn = 1\n", 2, 2, "LightconeOn.*A.9.4"),
+        ("WritePlaneOn = 1\n", 2, 2, "WritePlaneOn.*A.9.4"),
+        ("StarformationOn = 1\nExcursionSetReionOn = 1\n", 2, 2,
+         "--mesh with ExcursionSetReionOn.*A.9.4"),
+        ("CoolingOn = 1\n", "2x2", 2, "--mesh 2x2.*A.9.5"),
+        ("BlackHoleOn = 1\n", 2, 99, "RestartFlag 99.*A.10"),
+        ("ShortRangeForceWindowType = erfc\n", 2, 2, "erfc.*A.12")]
+    for extra, mesh, flag, match in cases:
         pf = _param(tmp_path, icpath, tmp_path / "out", extra)
         with pytest.raises(NotImplementedError, match=match):
-            tg.run_gadget(pf, mesh_devices=mesh, device="cpu")
-    # gas rows with HydroOn run (A.9.2); with cooling they are refused
+            tg.run_gadget(pf, flag, mesh_devices=mesh, device="cpu")
+    # gas rows with HydroOn and the subgrid switches run (A.9.2-A.9.3);
+    # with the QSO lightup as well they are refused
     from shenqi_tpu_torch.io.snapshot import read_snapshot, write_snapshot
     hdr, blocks = read_snapshot(icpath)
     n = len(blocks[1]["ID"])
@@ -131,9 +136,9 @@ def test_mesh_refusals(ic, tmp_path, monkeypatch):
     gas = dict(blocks[1], ID=blocks[1]["ID"] + n)
     write_snapshot(str(tmp_path / "IC_gas"), hdr, {0: gas, 1: blocks[1]})
     pf = _param(tmp_path, tmp_path / "IC_gas", tmp_path / "out",
-                "HydroOn = 1\nCoolingOn = 1\n")
+                "HydroOn = 1\nCoolingOn = 1\nQSOLightupOn = 1\n")
     with pytest.raises(NotImplementedError,
-                       match="--mesh with CoolingOn.*A.9.3"):
+                       match="--mesh with QSOLightupOn.*A.9.4"):
         tg.run_gadget(pf, mesh_devices=4, device="cpu")
     pf = _param(tmp_path, icpath, tmp_path / "out")
     with pytest.raises(NotImplementedError, match=r"--mesh 3x2.*A\.9\.5"):
