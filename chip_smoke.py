@@ -187,13 +187,30 @@ BUDGET_S for the whole run, the kernel build included:
           of the slab, and the FITS NPART those counts; every launch
           shape against the plain version.  Printed: the lightcone's host
           seconds per drift
+  erfc    ShortRangeForceWindowType erfc (ROADMAP A.12) on `lc`'s 64^3
+          ICs to LC_RUNS' outputs without LightconeOn and WritePlaneOn:
+          the pair kernel's erfc instantiation on every force call;
+          checks: the run's window, every launch shape against the plain
+          version with and without the potential (2e-4, the same bits
+          twice), the final positions beside `lc`'s (the calibrated
+          window) within ERFC_VS_EXACT of the box, finite P(k).  Printed:
+          each shape's ms, f32 bound and issue floor
+  writer  `lc`'s last snapshot written again through the C++ block
+          writer (native/bigfile_io.cpp, built into _build/) and the
+          numpy writer, every file byte-identical to each other and to
+          the run's own snapshot; seconds and MB/s of each writer (page
+          cache, no fsync)
+  field   genic's scheme="fast" Gaussian field at 128^3 on the card
+          against the same call on the CPU within 1e-5 of max |g|, with
+          the seconds of each
   profile where the time goes in one full force pass at that size
           (host-clock stages); outside the counted main path
 
 It ends with a `kernels:` line (each main path's launches, `cli`,
-`mesh`, `slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars`, `bh`, `reion` and
-`lc`, with the row of its largest launch shape),
-the JSON kernel table (the `cli` run's launches and largest shape), the
+`mesh`, `slice`, `dmsmall`, `nu`, `gas`, `gas128`, `stars`, `bh`, `reion`,
+`lc` and `erfc`, with the row of its largest launch shape),
+the JSON kernel table (the `cli` run's launches and largest shape, and
+the erfc instantiation's from the `erfc` run), the
 card's name and power limit, and the run's result as one JSON object.
 `--steps-log PATH` appends dm-small's per-step record (bins, force
 calls, stages) to PATH as JSON lines.  It imports
@@ -354,6 +371,12 @@ LC_BOX = 256000.0
 LC_Z_IC = 0.05
 LC_RUNS = ("0.955,0.96", 0.96)
 LC_PLANES = "PlaneThickness = 20000.0\nPlaneCutPoints = 128000,250000\n"
+# the erfc run's final positions beside the lc run's (the calibrated
+# window): the two windows differ by a few 1e-3 of the short-range force
+# near rcut (gravity/window.py), which moves no particle by 1e-4 of the
+# box between a = 0.95 and 0.96
+ERFC_VS_EXACT = 1e-4
+FIELD_SEED, FIELD_N = 181170, 128
 # star-small's own criteria this depth cannot reach (check_results.py):
 # the first blackholes.txt line, and the PIG BH counts at 0.125/0.15/0.2
 BH_FIRST_LINE = (0.14, 0.15)
@@ -859,6 +882,19 @@ def _cooling_line(c0):
             f"counts)")
 
 
+def _erfc_sass():
+    """(the erfc window's SASS count, how it differs from the table that
+    ops/p2p.py prices the erfc bound with): tools/torch_erfc_sass.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_erfc_sass", os.path.join(_TOOLS, "torch_erfc_sass.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = mod.count()
+    res.pop("sass")
+    return res, mod.check(res)
+
+
 def _run(cmd):
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
@@ -892,6 +928,8 @@ class Smoke:
         self.reion_launches, self.reion_row = 0, {}
         self.n_lc = 16 if rehearsal else 64
         self.lc_launches, self.lc_row = 0, {}
+        self.erfc_launches, self.erfc_row = 0, {}
+        self.lc_dir = None
         self.stars_dir = self.bh_dir = self.cli_dir = self.gas_dir = None
         # the cli and gas runs' paramfiles, outputs, steps and seconds,
         # for `mesh`
@@ -950,7 +988,7 @@ class Smoke:
             if pr.poll() is None:
                 pr.kill()
                 pr.communicate()
-        for d in (self.table_dir, self.stars_dir, self.bh_dir,
+        for d in (self.table_dir, self.stars_dir, self.bh_dir, self.lc_dir,
                   self.cli_dir, self.gas_dir):
             if d:
                 shutil.rmtree(d, ignore_errors=True)
@@ -960,15 +998,29 @@ class Smoke:
         if self.rehearsal:
             say("build", "skipped in the CPU rehearsal (no nvcc here)")
             return
+        from concurrent.futures import ThreadPoolExecutor
         from shenqi_tpu_torch import _build
         t = time.perf_counter()
-        built = _build.build_all()
+        with ThreadPoolExecutor(1) as pool:
+            sass = pool.submit(_erfc_sass)
+            built = _build.build_all()
+            sass = sass.result()
         say("build", f"{len(built)} librar{'y' if len(built) == 1 else 'ies'}"
             f" in {time.perf_counter() - t:.2f} s "
             f"(nvcc {', '.join(f'{b.stem}: {b.seconds:.2f} s' for b in built.values())})")
         for b in built.values():
             for fn, info in _ptxas_report(b.log):
                 say("build", f"{b.stem} {fn}: {info}")
+        res, bad = sass
+        say("build", f"erfc window SASS ({res['nvcc']}): force "
+            f"{res['force_opcodes']} -> (operations, FFMA, MUFU) "
+            f"{res['ERFC_FORCE']}; the potential adds "
+            f"{res['pot_opcodes']} -> {res['ERFC_POT']}")
+        if bad:
+            raise RuntimeError("; ".join(bad))
+        host = _build.build_host("bigfile_io")
+        say("build", f"native/bigfile_io.cpp ({' '.join(_build.host_flags())})"
+            f" in {host.seconds:.2f} s: {host.path.name}")
 
     # ------------------------------------------------------------- kernel
     def _make_sim(self, n_side, nmesh, box=50000.0):
@@ -1054,8 +1106,7 @@ class Smoke:
             inwin = self._in_window(ins, rest)
             for want_pot in (False, True):
                 r = self._compare(p2p_blocked, p2p_blocked_reference, ins,
-                                  rest, dict(kwc, want_pot=want_pot), ncf,
-                                  ncp, inwin)
+                                  rest, dict(kwc, want_pot=want_pot), inwin)
                 for i, k in enumerate(("ms", "bound_ms", "floor_ms")):
                     tot[want_pot][i] += n * r[k]
                 say("kernel", f"x{n} per pass: p2p_blocked " + " ".join(
@@ -1088,6 +1139,30 @@ class Smoke:
             say("kernel", f"main-path tier, potential {want_pot}: degree "
                 f"{ncf - 1} compiled in {ms_c:.4f} ms, run-time degree "
                 f"{ncf} (zero top coefficient) {ms_r:.4f} ms")
+        # the erfc window's instantiation at the same tier (ROADMAP A.12),
+        # beside the degree compiled in, each against its own bound
+        from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
+        ew = ErfcWindow(sim.gravity.asmth)
+        erest = (*rest[:3], ew, rest[4])
+        ins = args[:3]
+        inwin = {id(w): self._in_window(ins, rest),
+                 id(ew): self._in_window(ins, erest)}
+        for want_pot in (False, True):
+            kwp = dict(kw, want_pot=want_pot)
+            ms_c, ms_e = self._time(
+                lambda: p2p_blocked(*args, **kwp),
+                lambda: p2p_blocked(*ins, *erest, **kwp))
+            txt = []
+            for name, win, ms in ((f"degree {ncf - 1}", w, ms_c),
+                                  ("erfc", ew, ms_e)):
+                bound, by, pairs = self._bound(ins, kw["blk"], want_pot, win,
+                                               inwin[id(win)])
+                floor = _issue_floor_ms(pairs, inwin[id(win)], win, want_pot)
+                txt.append(f"{name} {ms:.4f} ms (f32 bound {bound:.4f} ms, "
+                           f"{100 * bound / ms:.1f}%; issue floor "
+                           f"{floor:.4f} ms, {100 * floor / ms:.1f}%)")
+            say("kernel", f"main-path tier {list(ins[2].shape)} blk "
+                f"{kw['blk']}, potential {want_pot}: " + "; ".join(txt))
         self.kernel_row = rows[2 * keys.index(main)]
         del shapes, args, tgt, src, sm, one, four, cases
 
@@ -1110,18 +1185,19 @@ class Smoke:
             n += int(((x < 1.0) & (sm[lo:lo + step] != 0)[:, None]).sum())
         return n
 
-    def _bound(self, ins, blk, want_pot, ncf, ncp, inwin):
+    def _bound(self, ins, blk, want_pot, window, inwin):
         """(least time in ms, what sets it, live pair-lanes): the f32
         operations of the live pairs at the peak f32 rate (a pair inside
-        the window at its full count, one past it at the separation, r
-        and x), or each input read once and each output written once at
-        the memory rate, whichever is longer."""
+        the window at its full count for the window's instantiation, one
+        past it at the separation, r and x), or each input read once and
+        each output written once at the memory rate, whichever is
+        longer."""
         from shenqi_tpu_torch.ops.p2p import (p2p_flops_outside_window,
-                                              p2p_flops_per_pair)
+                                              pair_counts)
         tgt, src, sm = ins
         nb = sm.shape[0]
         pairs = int((sm != 0).sum()) * blk
-        flops = (inwin * p2p_flops_per_pair(ncf, ncp, want_pot)
+        flops = (inwin * pair_counts(window, want_pot)[0]
                  + (pairs - inwin) * p2p_flops_outside_window())
         nbytes = (tgt.numel() + src.numel() + sm.numel() + nb * blk * 3
                   + (nb * blk if want_pot else 0)) * 4
@@ -1130,7 +1206,7 @@ class Smoke:
         return (max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes", pairs)
 
-    def _compare(self, kern, plain, ins, rest, kw, ncf, ncp, inwin):
+    def _compare(self, kern, plain, ins, rest, kw, inwin):
         torch = self.torch
         a_k, p_k = kern(*ins, *rest, **kw)
         a_2, p_2 = kern(*ins, *rest, **kw)
@@ -1143,9 +1219,9 @@ class Smoke:
             rel = max(rel, float((p_k - p_p).abs().max())
                       / max(float(p_p.abs().max()), 1e-30))
         nb, S = ins[2].shape
-        bound, by, pairs = self._bound(ins, kw["blk"], kw["want_pot"], ncf,
-                                       ncp, inwin)
-        floor = _issue_floor_ms(pairs, inwin, ncf, ncp, kw["want_pot"])
+        bound, by, pairs = self._bound(ins, kw["blk"], kw["want_pot"],
+                                       rest[3], inwin)
+        floor = _issue_floor_ms(pairs, inwin, rest[3], kw["want_pot"])
         ms_k, ms_p = self._time(lambda: kern(*ins, *rest, **kw),
                                 lambda: plain(*ins, *rest, **kw))
         return dict(blk=kw["blk"], want_pot=kw["want_pot"], nb=nb, S=S,
@@ -1527,34 +1603,37 @@ class Smoke:
         if g.ngroups < 1:
             raise SmokeFailure("FOF found no group in the clustered state")
 
-    def _check_shapes(self, shapes, phase):
+    def _check_shapes(self, shapes, phase, both_pots=False):
         """Every launch shape (nb, blk, S, want_pot) a run gave the pair
-        kernel, on the inputs of one of its launches: against the plain
-        version, a second launch's bits, and its bound.  Returns the row
-        of the shape with the most pair lanes."""
+        kernel, on the inputs of one of its launches (with `both_pots`
+        with and without the potential): against the plain version, a
+        second launch's bits, and its bound.  Returns the row of the
+        shape with the most pair lanes, at the run's own want_pot."""
         from shenqi_tpu_torch.ops.p2p import (p2p_blocked,
                                               p2p_blocked_reference)
         rows = []
         for key in sorted(shapes):
             n, args, kw = shapes[key]
             ins, rest = args[:3], args[3:]
-            w = rest[3]
-            r = self._compare(p2p_blocked, p2p_blocked_reference, ins, rest,
-                              kw,
-                              w.cf.shape[0], w.cp.shape[0],
-                              self._in_window(ins, rest))
-            say(phase, f"x{n} in the run: p2p_blocked " + " ".join(
-                f"{k}={v}" for k, v in r.items())
-                + f"; {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
-            if not r["rel_err"] < 2e-4:
-                raise SmokeFailure(f"p2p_blocked disagrees with its plain "
-                                   f"version at a shape of the {phase} run: "
-                                   f"{r}")
-            if not r["repeatable"]:
-                raise SmokeFailure(f"p2p_blocked gave other bits on a "
-                                   f"second launch at a shape of the "
-                                   f"{phase} run: {r}")
-            rows.append((key[0] * key[1] * key[2], r))
+            inwin = self._in_window(ins, rest)
+            for want_pot in ((False, True) if both_pots
+                             else (kw["want_pot"],)):
+                r = self._compare(p2p_blocked, p2p_blocked_reference, ins,
+                                  rest, dict(kw, want_pot=want_pot), inwin)
+                say(phase, f"x{n} in the run: p2p_blocked " + " ".join(
+                    f"{k}={v}" for k, v in r.items())
+                    + f"; {100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+                    f"{100 * r['floor_ms'] / r['ms']:.1f}% of issue floor")
+                if not r["rel_err"] < 2e-4:
+                    raise SmokeFailure(f"p2p_blocked disagrees with its "
+                                       f"plain version at a shape of the "
+                                       f"{phase} run: {r}")
+                if not r["repeatable"]:
+                    raise SmokeFailure(f"p2p_blocked gave other bits on a "
+                                       f"second launch at a shape of the "
+                                       f"{phase} run: {r}")
+                if want_pot == kw["want_pot"]:
+                    rows.append((key[0] * key[1] * key[2], r))
         if not rows:
             raise SmokeFailure(f"the {phase} run launched no pair kernel")
         return max(rows, key=lambda x: x[0])[1]
@@ -3412,11 +3491,9 @@ class Smoke:
         z = 0.05, then gadget_main to a = 0.96 with FOF, LightconeOn and
         WritePlaneOn (LC_PLANES' slabs), outputs at 0.955 and 0.96."""
         import tempfile
-        tmp = tempfile.mkdtemp(prefix="shenqi_lc_")
-        try:
-            self._lc(tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        # kept until close(): `erfc` and `writer` start from its files
+        self.lc_dir = tempfile.mkdtemp(prefix="shenqi_lc_")
+        self._lc(self.lc_dir)
 
     def _lc(self, tmp):
         torch = self.torch
@@ -3555,6 +3632,123 @@ class Smoke:
         del rec
         self.lc_row = self._check_shapes(shapes, "lc")
 
+    # --------------------------------------------------------------- erfc
+    def erfc(self):
+        """ShortRangeForceWindowType erfc (ROADMAP A.12): `lc`'s ICs and
+        outputs without LightconeOn and WritePlaneOn, every force call
+        through the pair kernel's erfc instantiation."""
+        torch = self.torch
+        from shenqi_tpu_torch.cli import gadget_main
+        from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
+        from shenqi_tpu_torch.io.snapshot import read_snapshot
+        from shenqi_tpu_torch.ops.p2p import (kernel_instantiation,
+                                              p2p_blocked)
+        tmp = self.lc_dir
+        out = os.path.join(tmp, "erfc")
+        pp = os.path.join(tmp, "erfc.gadget")
+        with open(pp, "w") as f:
+            f.write(_GADGET.replace("OutputList = {a}",
+                                    f"OutputList = {LC_RUNS[0]}").format(
+                ic=os.path.join(tmp, "IC", "IC"), out=out, a=LC_RUNS[1],
+                fof=0, nmesh=2 * self.n_lc)
+                + "ShortRangeForceWindowType = erfc\n")
+        dev = "cpu" if self.rehearsal else None
+        t = time.perf_counter()
+        # the main path: counts set to 0 just before, read just after
+        p2p_blocked.launches = 0
+        with _RunRecorder(self._sync) as rec:
+            sim = gadget_main.run_gadget(pp, 2, device=dev)
+        t_run = time.perf_counter() - t
+        self.erfc_launches = p2p_blocked.launches
+        w = sim.window_tables
+        inst = "plain version (CPU)" if self.rehearsal else \
+            kernel_instantiation(w, False)
+        tot = dict(sorted(sim.walltime.total_acc.items()))
+        say("erfc", f"gadget_main RestartFlag 2 with the erfc window "
+            f"({w}; kernel instantiation: {inst}), {self.n_lc ** 3} "
+            f"particles to a={sim.atime():.5f}: {t_run:.2f} s, "
+            f"{sim.step_count} steps, {len(sim.power_history)} PM steps; "
+            f"stage totals " + ", ".join(f"{k} {v:.3f} s"
+                                         for k, v in tot.items())
+            + f"; p2p_blocked launches {self.erfc_launches} in "
+            f"{len(rec.shapes)} shapes")
+        if w != ErfcWindow(sim.gravity.asmth) or not (
+                self.rehearsal or inst == "erfc window"):
+            raise SmokeFailure(f"the erfc run's window is {w} ({inst})")
+        if not all(np.isfinite(np.asarray(h[2])).all()
+                   for h in sim.power_history):
+            raise SmokeFailure("the erfc run's P(k) is not finite")
+        # the final positions beside the lc run's (the calibrated window)
+        last = f"PART_{len(LC_RUNS[0].split(',')) - 1:03d}"
+        _, be = read_snapshot(os.path.join(out, last))
+        _, bx = read_snapshot(os.path.join(tmp, "output", last))
+        oe, ox = np.argsort(be[1]["ID"]), np.argsort(bx[1]["ID"])
+        if not np.array_equal(be[1]["ID"][oe], bx[1]["ID"][ox]):
+            raise SmokeFailure("the erfc and lc snapshots hold other IDs")
+        d = np.abs(be[1]["Position"][oe] - bx[1]["Position"][ox])
+        d = np.minimum(d, LC_BOX - d).max() / LC_BOX
+        say("erfc", f"{last}: positions beside lc's (calibrated window) "
+            f"within {d:.3e} of the box (limit {ERFC_VS_EXACT:g}); finite: "
+            f"{bool(np.isfinite(be[1]['Position']).all())}")
+        if not (d < ERFC_VS_EXACT and np.isfinite(be[1]["Position"]).all()):
+            raise SmokeFailure("the erfc run's positions left the lc run's")
+        self._check_calls("erfc", rec)
+        del sim
+        shapes = dict(rec.shapes)
+        del rec
+        self.erfc_row = self._check_shapes(shapes, "erfc", both_pots=True)
+
+    # ------------------------------------------------------------- writer
+    def writer(self):
+        """`lc`'s last snapshot written again by the C++ block writer and
+        by the numpy writer, in turns (numpy, native, native, numpy),
+        every file byte-identical to each other and to the run's own."""
+        from shenqi_tpu_torch.io.snapshot import read_snapshot, write_snapshot
+        last = f"PART_{len(LC_RUNS[0].split(',')) - 1:03d}"
+        src = os.path.join(self.lc_dir, "output", last)
+        hdr, blocks = read_snapshot(src)
+        mb = sum(v.nbytes for b in blocks.values() for v in b.values()) / 1e6
+        best = {}
+        for name in ("numpy", "native", "native", "numpy"):
+            d = os.path.join(self.lc_dir, f"write_{name}")
+            shutil.rmtree(d, ignore_errors=True)
+            t = time.perf_counter()
+            write_snapshot(d, hdr, blocks, _numpy=name == "numpy")
+            best[name] = min(best.get(name, 1e30), time.perf_counter() - t)
+        ref = _tree_bytes(os.path.join(self.lc_dir, "write_numpy"))
+        for other in ("write_native", os.path.join("output", last)):
+            got = _tree_bytes(os.path.join(self.lc_dir, other))
+            bad = sorted(k for k in set(ref) | set(got)
+                         if ref.get(k) != got.get(k))
+            if bad:
+                raise SmokeFailure(f"{other} differs from the numpy writer's "
+                                   f"files: {bad[:5]}")
+        say("writer", f"{last} of lc ({mb:.1f} MB of blocks, {len(ref)} "
+            f"files, byte-identical from both writers and the run): numpy "
+            f"{best['numpy']:.4f} s ({mb / best['numpy']:.1f} MB/s), native "
+            f"{best['native']:.4f} s ({mb / best['native']:.1f} MB/s), best "
+            f"of 2 each, to the page cache (no fsync)")
+
+    # -------------------------------------------------------------- field
+    def field(self):
+        """genic's scheme="fast" field on the device against the CPU."""
+        from shenqi_tpu_torch.genic.ic import gaussian_field
+        n = 32 if self.rehearsal else FIELD_N
+        secs = []
+        for dev in (self.dev, self.dev, "cpu"):
+            t = time.perf_counter()
+            g = gaussian_field(FIELD_SEED, n, scheme="fast", device=dev)
+            self._sync()
+            secs.append(time.perf_counter() - t)
+            got, ref = (got, g) if dev == "cpu" else (g, None)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        say("field", f"gaussian_field(scheme='fast') {n}^3 on {self.dev}: "
+            f"{secs[0]:.3f} s, {secs[1]:.3f} s (first, second call), on "
+            f"the CPU {secs[2]:.3f} s; max |g_dev - g_cpu| / max |g| = "
+            f"{err:.3e} (limit 1e-5)")
+        if not err < 1e-5 or got.shape != (n, n, n // 2 + 1):
+            raise SmokeFailure("the fast field on the device left the CPU's")
+
     def _star_fields_check(self, snap, pig, phase="stars"):
         """The gas and star blocks of a PART finite, the gas density,
         weighted density, smoothing length and internal energy (so the
@@ -3659,10 +3853,14 @@ class Smoke:
                 ("stars", self.stars_row, self.stars_launches),
                 ("bh", self.bh_row, self.bh_launches),
                 ("reion", self.reion_row, self.reion_launches),
-                ("lc", self.lc_row, self.lc_launches))]),
+                ("lc", self.lc_row, self.lc_launches),
+                ("erfc", self.erfc_row, self.erfc_launches))]),
               flush=True)
+        erfc = dict(entry(self.erfc_row, self.erfc_launches),
+                    name="p2p_blocked_erfc",
+                    replaces="shenqi_tpu/gravity/stencil.py:296")
         print(json.dumps({"kernels": [entry(self.cli_row,
-                                            self.cli_launches)]}),
+                                            self.cli_launches), erfc]}),
               flush=True)
         print(self.card, flush=True)
 
@@ -4149,22 +4347,34 @@ class _StageClock:
         return out
 
 
-def _issue_floor_ms(pairs, inwin, ncf, ncp, want_pot):
+def _tree_bytes(root):
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for f in names:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def _issue_floor_ms(pairs, inwin, window, want_pot):
     """The pipe-limited floor beside the f32 bound: the operations of
-    ops/p2p.py's tally (a pair inside the window at its full count, one
-    past it at the separation, r and x) as issued instructions (an FMA,
-    which the tally counts twice, issues once) at 128 per clock per SM,
-    or each live pair's 3 int->float converts and rsqrt at the 16 per
-    clock per SM of their pipe, whichever takes longer."""
+    ops/p2p.py's tally (a pair inside the window at its full count for
+    the window's instantiation, one past it at the separation, r and x)
+    as issued instructions (an FMA, which the tally counts twice, issues
+    once) at 128 per clock per SM, or each live pair's 3 int->float
+    converts and rsqrt (and inside the erfc window its erfcf's and
+    expf's MUFU instructions) at the 16 per clock per SM of their pipe,
+    whichever takes longer."""
     from shenqi_tpu_torch.ops.p2p import (p2p_flops_outside_window,
-                                          p2p_flops_per_pair)
-    # FMAs in the tally: r^2 2, t 1, Clenshaw one per term, accumulation
-    # 3; the potential's Clenshaw one per term and its accumulation 1;
-    # past the window, r^2's 2
-    fmas = 6 + ncf + (ncp + 1 if want_pot else 0)
-    instr = (inwin * (p2p_flops_per_pair(ncf, ncp, want_pot) - fmas)
+                                          pair_counts)
+    # FMAs in the tally (pair_counts): r^2 2, accumulation 3, the
+    # window's; past the window, r^2's 2
+    ops, fmas, xu = pair_counts(window, want_pot)
+    instr = (inwin * (ops - fmas)
              + (pairs - inwin) * (p2p_flops_outside_window() - 2))
-    return max(instr / H100_ISSUE_S, pairs * 4 / H100_XU_S) * 1e3
+    return max(instr / H100_ISSUE_S,
+               (inwin * xu + (pairs - inwin) * 4) / H100_XU_S) * 1e3
 
 
 def _ptxas_report(log: str):
@@ -4182,12 +4392,13 @@ def _ptxas_report(log: str):
             continue
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and fn:
-            t = re.search(r"p2p_kernelILb([01])ELi(\d+)E", fn)
+            t = re.search(r"p2p_kernelILb([01])ELi(n?\d+)E", fn)
             if t:
                 pot = "want_pot" if t.group(1) == "1" else "no pot"
-                nc = int(t.group(2))
+                nc = int(t.group(2).replace("n", "-"))
                 fn = (f"p2p_kernel<{pot}, "
-                      f"{f'degree {nc - 1}' if nc else 'run-time degree'}>")
+                      + ("erfc window" if nc < 0 else f"degree {nc - 1}"
+                         if nc else "run-time degree") + ">")
             out.append((fn, f"{m.group(1)} registers, {m.group(2)} B smem, "
                         f"{spill}"))
             fn = None
@@ -4223,7 +4434,7 @@ def main(argv) -> int:
         smoke.start_tables()
         for phase in ("env", "build", "kernel", "parity", "slice", "cli",
                       "dmsmall", "nu", "gas", "gas128", "stars", "bh", "mesh",
-                      "reion", "lc", "profile"):
+                      "reion", "lc", "erfc", "writer", "field", "profile"):
             getattr(smoke, phase)()
             if not rehearsal:
                 torch.cuda.synchronize()

@@ -9,6 +9,12 @@ successful build, so a build that was cut off leaves nothing a later
 run trusts.  Sources build in parallel, one nvcc each.  nvcc's
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside
 each library as `<name>.log`.
+
+The host C++ of the repository's `native/` (the bigfile writer,
+native/bigfile_io.cpp) builds the same way with the C++ compiler and
+native/Makefile's CXXFLAGS into `_build/` (`load_host_library`); the
+library that `make -C native` may have left in `native/` is never
+loaded.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,6 +33,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+
+NATIVE_DIR = PKG_DIR.parent / "native"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -115,3 +124,52 @@ def load_library(stem: str) -> ctypes.CDLL:
     if stem not in built:
         raise RuntimeError(f"no CUDA source csrc/{stem}.cu")
     return ctypes.CDLL(str(built[stem].path))
+
+
+def host_flags() -> tuple:
+    """The compiler and flags of native/Makefile (`CXX ?=`, `CXXFLAGS
+    ?=`; $CXX overrides the compiler, as for make), with -shared."""
+    text = (NATIVE_DIR / "Makefile").read_text()
+    cxx = re.search(r"^CXX\s*\?=\s*(.+)$", text, re.M)
+    flags = re.search(r"^CXXFLAGS\s*\?=\s*(.+)$", text, re.M)
+    if cxx is None or flags is None:
+        raise RuntimeError("native/Makefile names no CXX or CXXFLAGS")
+    return (os.environ.get("CXX") or cxx.group(1).strip(),
+            *flags.group(1).split(), "-shared")
+
+
+def build_host(stem: str) -> Built:
+    """Build native/<stem>.cpp into _build/lib<stem>_<hash>.so unless it
+    is there; a failed or timed-out build raises with the compiler's
+    output."""
+    src = NATIVE_DIR / f"{stem}.cpp"
+    if not src.is_file():
+        raise RuntimeError(f"no host source native/{stem}.cpp")
+    cmd = host_flags()
+    h = hashlib.sha256(" ".join(cmd).encode())
+    h.update(src.read_bytes())
+    dst = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if dst.is_file():
+        return Built(stem, dst, "", 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = dst.with_name(f".tmp{os.getpid()}_{dst.name}")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([*cmd, "-o", str(tmp), str(src)],
+                             capture_output=True, text=True,
+                             timeout=NVCC_TIMEOUT_S)
+        text, rc = out.stdout + out.stderr, out.returncode
+    except (OSError, subprocess.TimeoutExpired) as e:
+        text, rc = f"{cmd[0]}: {e}", -1
+    if rc != 0 or not tmp.is_file():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build of native/{stem}.cpp failed "
+                           f"(rc={rc}):\n{text}")
+    os.replace(tmp, dst)
+    return Built(stem, dst, text, time.perf_counter() - t0)
+
+
+@lru_cache(maxsize=None)
+def load_host_library(stem: str) -> ctypes.CDLL:
+    """The ctypes handle of native/<stem>.cpp, built on first use."""
+    return ctypes.CDLL(str(build_host(stem).path))

@@ -22,7 +22,9 @@ QSOLightupOn/HeliumReionizationOn with a ReionHistFile (a FOF on every
 PM step of the helium era); ExcursionSetReionOn with a J21CoeffFile;
 snapshots with the gas, star and BH blocks, sfr.txt, resumes that
 restore the gas, star and BH state), LightconeOn (the LIGHTCONE
-bigfile) and WritePlaneOn (FITS potential planes at each snapshot FOF).
+bigfile), WritePlaneOn (FITS potential planes at each snapshot FOF) and
+either short-range window (ShortRangeForceWindowType exact or erfc, the
+latter on this path and on --mesh).
 `--mesh N` runs the slab loop on N spawned ranks (NCCL on cuda:0..N-1,
 gloo with --device cpu; _spawn_slab, _run_slab): dark matter and, with
 HydroOn, SPH with the gas blocks in its snapshots, and CoolingOn,
@@ -34,7 +36,7 @@ starts from InitGasTemp and the IC fixed point, its stars with birth_a 0
 and its BHs with bh_mass 0 (ROADMAP C.4).  What the port does not have
 yet is refused with the ROADMAP item that brings it: on --mesh
 reionization, lightcones and planes (A.9.4) and `--mesh AxB` (A.9.5);
-RestartFlag 99 (A.10) and the erfc short-range window (A.12).
+RestartFlag 99 (A.10).
 """
 
 from __future__ import annotations
@@ -201,10 +203,10 @@ def _write_power(fn, kk, pk, nm, d1):
 
 def _refuse_unported(ps, restart_flag, mesh_devices):
     """What the run path needs that the port has not ported (FOF and
-    P(k) of a snapshot, RestartFlag 3 and 4, need none of it but the
-    first two).  `--mesh N` runs the slab loop with dark matter, gas and
-    the subgrid sources (ROADMAP A.9.1-A.9.3); what it does not have yet
-    is refused with its item."""
+    P(k) of a snapshot, RestartFlag 3 and 4, need none of it).  `--mesh
+    N` runs the slab loop with dark matter, gas and the subgrid sources
+    (ROADMAP A.9.1-A.9.3); what it does not have yet is refused with its
+    item."""
     reion = [k for k in ("HeliumReionizationOn", "QSOLightupOn",
                          "ExcursionSetReionOn", "LightconeOn",
                          "WritePlaneOn") if ps.get_int(k)]
@@ -215,9 +217,6 @@ def _refuse_unported(ps, restart_flag, mesh_devices):
          f"--mesh {mesh_devices} (the 2-D PM processor grid)", "A.9.5"),
         (mesh and bool(reion), f"--mesh with {', '.join(reion)}",
          "A.9.4")]
-    if restart_flag not in (3, 4):
-        refuse.append((ps.get_enum("ShortRangeForceWindowType") != 0,
-                       "ShortRangeForceWindowType erfc", "A.12"))
     for cond, what, item in refuse:
         if cond:
             raise NotImplementedError(
@@ -636,7 +635,9 @@ def _run_config(ps, hdr, atime, npart):
         rcut_cells=ps.get_double("TreeRcut"),
         err_tol_force_acc=ps.get_double("ErrTolForceAcc"),
         bh_opening_angle=ps.get_double("BHOpeningAngle"),
-        use_bh=1 if ps.get_int("TreeUseBH") == 1 else 0)
+        use_bh=1 if ps.get_int("TreeUseBH") == 1 else 0,
+        window_type=("exact" if ps.get_enum(
+            "ShortRangeForceWindowType") == 0 else "erfc"))
     # softening: an explicitly set fraction (GravitySoftening,
     # params.cpp:161, in mean DM separations; spline h = 2.8x that);
     # otherwise the simulation derives the same 1/30 default itself

@@ -8,9 +8,14 @@
 //      times box / 2^32;
 //   2. the cubic-spline softened force factor (u < 0.5 and 0.5 <= u < 1
 //      inside h, Newtonian m / r^3 beyond it), with one rsqrt;
-//   3. that factor times the PM-calibrated Chebyshev window, evaluated
-//      by Clenshaw, clipped to [0, 1] and zero for x = r / (cell xmax)
-//      >= 1;
+//   3. that factor times the short-range window, zero for x = r /
+//      (cell xmax) >= 1: the PM-calibrated Chebyshev fit, evaluated by
+//      Clenshaw and clipped to [0, 1], or the analytic erfc form of
+//      ShortRangeForceWindowType erfc (shenqi_tpu/gravity/shortrange.py
+//      `short_range_window` with no tables, which the JAX package
+//      evaluates in its XLA pair pass, not in the TPU kernel):
+//      u = r / cell * 0.5 / asmth, erfc(u) + 2u / sqrt(pi) exp(-u^2) for
+//      the force and erfc(u) for the potential, unclipped;
 //   4. optionally the potential with its own spline and window.
 // Outputs acc [nb, blk, 3] and pot [nb, blk], both times G.
 //
@@ -44,7 +49,13 @@
 //    any other, which takes 1.6x as long at the main-path tier
 //    (chip_smoke.py's kernel phase times both).  The Clenshaw step is
 //    fma(2t, b1, c[k] - b2), one dependent FMA per term.  rsqrt is the
-//    one-instruction ftz form.
+//    one-instruction ftz form.  The erfc window is a third window
+//    parameter (kErfc): CUDA's erfcf and expf per pair in place of the
+//    Clenshaw sums, one erfcf shared by the force and the potential, so
+//    the Chebyshev instantiations compile as before.  Its operation
+//    count per pair is ops/p2p.py p2p_erfc_flops_per_pair (erfcf's and
+//    expf's instructions counted in their SASS by
+//    tools/torch_erfc_sass.py).
 //  - Loads overlap compute.  Each warp stages its chunks of 32 source
 //    lanes (positions and mass interleaved as one 16-byte entry) into
 //    a kStages-deep ring of its own shared buffers with cp.async, so
@@ -65,9 +76,15 @@
 // ptxas (nvcc 12.9, sm_90a; chip_smoke.py's build phase prints it):
 // degree 12 compiled in, 40 registers without the potential and 64 with
 // it (12 B of spill stores, 20 B of loads); run-time degree, 63 and 59
-// registers, no spills; 32 KiB of static shared memory (33 KiB with the
-// run-time coefficients).  So 3 blocks (48 warps) fit an SM without the
-// potential and 2 with it.
+// registers, no spills; erfc window, 48 and 59 registers, no spills;
+// 32 KiB of static shared memory (33 KiB with the run-time
+// coefficients).  So 3 blocks (48 warps) fit an SM without the
+// potential and 2 with it.  The erfc window costs 81 f32 operations a
+// pair where the degree-12 Clenshaw costs 46 (ops/p2p.py), so its
+// instantiation issues ~1.4x the instructions without the potential;
+// with it one erfcf serves both windows where the degree-12 kernel sums
+// a second Clenshaw series.  chip_smoke.py's kernel phase times both
+// instantiations at the main-path tier; PERF.md keeps the times.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,6 +98,10 @@ constexpr int kStages = 3;      // cp.async ring depth per warp
 constexpr int kMaxBlk = 256;
 constexpr int kMaxCoef = 64;    // Chebyshev coefficients per window
 constexpr int kTplCoef = 13;    // degree-12 window: asmth 1.5
+constexpr int kErfc = -1;       // the analytic erfc window
+constexpr int kKindCheb = 0;    // window kinds of the C interface
+constexpr int kKindErfc = 1;
+constexpr float kTwoOverSqrtPi = 1.12837916709551257f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -147,6 +168,50 @@ struct Series<0> {
   }
 };
 
+__device__ __forceinline__ float cheb_t(float x) {
+  return fminf(fmaxf(2.f * x - 1.f, -1.f), 1.f);
+}
+
+// The window at x = r / (cell xmax) (the caller zeroes x >= 1): the
+// Chebyshev fits in t = 2x - 1, clipped to [0, 1], for the force and
+// the potential (t is computed once: the compiler shares it).
+template <int NC>
+struct Window {
+  Series<NC> f, p;
+  __device__ __forceinline__ void load(const float* cf, const float* cp,
+                                       const float* sf, const float* sp,
+                                       int ncf, int ncp, bool want_pot,
+                                       float) {
+    f.load(cf, sf, ncf);
+    if (want_pot) p.load(cp, sp, ncp);
+  }
+  __device__ __forceinline__ float force(float x) const {
+    return clamp01(f(cheb_t(x)));
+  }
+  __device__ __forceinline__ float pot(float x) const {
+    return clamp01(p(cheb_t(x)));
+  }
+};
+
+// The analytic erfc window, u = x * ku with ku = xmax * 0.5 / asmth
+// (the force's erfcf(u) serves the potential: the compiler shares it).
+template <>
+struct Window<kErfc> {
+  float ku;
+  __device__ __forceinline__ void load(const float*, const float*,
+                                       const float*, const float*, int,
+                                       int, bool, float k) {
+    ku = k;
+  }
+  __device__ __forceinline__ float force(float x) const {
+    const float u = x * ku;
+    return erfcf(u) + kTwoOverSqrtPi * u * expf(-u * u);
+  }
+  __device__ __forceinline__ float pot(float x) const {
+    return erfcf(x * ku);
+  }
+};
+
 // rsqrt.approx.ftz: one MUFU instruction.  r2 is 0 or at least
 // (box / 2^32)^2, never subnormal, so flushing changes no result.
 __device__ __forceinline__ float rsqrt_ftz(float v) {
@@ -163,8 +228,7 @@ struct Scalars {
 template <bool WANT_POT, int NC>
 __device__ __forceinline__ void pair(const uint4 e, uint32_t tx, uint32_t ty,
                                      uint32_t tz, const Scalars& k,
-                                     const Series<NC>& wf,
-                                     const Series<NC>& wp, float& ax,
+                                     const Window<NC>& w, float& ax,
                                      float& ay, float& az, float& ap) {
   const float m = __uint_as_float(e.w);
   const float dx = static_cast<float>(static_cast<int32_t>(e.x - tx)) * k.to_f;
@@ -189,8 +253,7 @@ __device__ __forceinline__ void pair(const uint4 e, uint32_t tx, uint32_t ty,
   } else {
     fac = m * rinv3;
   }
-  const float t = fminf(fmaxf(2.f * x - 1.f, -1.f), 1.f);
-  const float fall = fac * clamp01(wf(t));
+  const float fall = fac * w.force(x);
   if (use) {
     ax += dx * fall;
     ay += dy * fall;
@@ -209,7 +272,7 @@ __device__ __forceinline__ void pair(const uint4 e, uint32_t tx, uint32_t ty,
     } else {
       fpot = -m * rinv;
     }
-    const float pall = fpot * clamp01(wp(t));
+    const float pall = fpot * w.pot(x);
     if (use) ap += pall;
   }
 }
@@ -220,7 +283,7 @@ p2p_kernel(const uint32_t* __restrict__ tgt, const uint32_t* __restrict__ src,
            const float* __restrict__ smass, const float* __restrict__ cf,
            const float* __restrict__ cp, float* __restrict__ acc,
            float* __restrict__ pot, int blk, int S, int ncf, int ncp,
-           float to_f, float soft, float inv_cellxmax, float g) {
+           float to_f, float soft, float inv_cellxmax, float ku, float g) {
   __shared__ uint4 ring[kWarps][kStages][kChunk];
   __shared__ float4 red[kThreads];
   __shared__ float scoef[2][NC == 0 ? kMaxCoef : 1];
@@ -240,15 +303,14 @@ p2p_kernel(const uint32_t* __restrict__ tgt, const uint32_t* __restrict__ src,
   const int p = bp >= 32 ? 0 : lane / bp;    // this lane's sub-partition
   const int per = kChunk / sub;              // entries per lane per chunk
 
-  Series<NC> wf, wp;
+  Window<NC> w;
   if constexpr (NC == 0) {
     for (int k = threadIdx.x; k < ncf; k += kThreads) scoef[0][k] = cf[k];
     if (WANT_POT)
       for (int k = threadIdx.x; k < ncp; k += kThreads) scoef[1][k] = cp[k];
     __syncthreads();
   }
-  wf.load(cf, scoef[0], ncf);
-  if (WANT_POT) wp.load(cp, scoef[1], ncp);
+  w.load(cf, cp, scoef[0], scoef[1], ncf, ncp, WANT_POT, ku);
 
   uint32_t tx = 0, ty = 0, tz = 0;
   if (i < blk) {
@@ -297,8 +359,7 @@ p2p_kernel(const uint32_t* __restrict__ tgt, const uint32_t* __restrict__ src,
     if (__any_sync(kFull, __uint_as_float(e[lane].w) != 0.f)) {
 #pragma unroll 4
       for (int s = 0; s < per; ++s)
-        pair<WANT_POT, NC>(e[p + sub * s], tx, ty, tz, k, wf, wp, ax, ay, az,
-                           ap);
+        pair<WANT_POT, NC>(e[p + sub * s], tx, ty, tz, k, w, ax, ay, az, ap);
     }
     __syncwarp();
   }
@@ -332,10 +393,19 @@ p2p_kernel(const uint32_t* __restrict__ tgt, const uint32_t* __restrict__ src,
   }
 }
 
-// The instantiation that serves these window sizes: kTplCoef with the
-// coefficients in registers, or 0 for the run-time degree.
-int instantiation(int ncf, int ncp, int want_pot) {
+// The instantiation that serves this window: kErfc for the erfc kind;
+// for the Chebyshev kind kTplCoef with the coefficients in registers, or
+// 0 for the run-time degree.
+int instantiation(int kind, int ncf, int ncp, int want_pot) {
+  if (kind == kKindErfc) return kErfc;
   return ncf == kTplCoef && (!want_pot || ncp == kTplCoef) ? kTplCoef : 0;
+}
+
+template <bool WANT_POT>
+decltype(&p2p_kernel<WANT_POT, 0>) kernel_for(int inst) {
+  return inst == kErfc       ? p2p_kernel<WANT_POT, kErfc>
+         : inst == kTplCoef  ? p2p_kernel<WANT_POT, kTplCoef>
+                             : p2p_kernel<WANT_POT, 0>;
 }
 
 }  // namespace
@@ -346,37 +416,42 @@ extern "C" {
 // `device`.  Pointers are device pointers to contiguous arrays:
 // tgt [nb, blk, 3] u32, src [nb, S, 3] u32, smass [nb, S] f32,
 // cf [ncf] f32, cp [ncp] f32, acc [nb, blk, 3] f32, pot [nb, blk] f32
-// (unused unless want_pot).  Returns the CUDA error code of the launch
-// (0 on success); the kernel itself runs asynchronously.
+// (unused unless want_pot).  `kind` is the window: 0 the Chebyshev fit
+// (cf, cp), 1 erfc (cf, cp unused; ku = xmax * 0.5 / asmth).  Returns
+// the CUDA error code of the launch (0 on success); the kernel itself
+// runs asynchronously.
 int shenqi_p2p_blocked(const void* tgt, const void* src, const void* smass,
-                       const void* cf, int ncf, const void* cp, int ncp,
-                       void* acc, void* pot, int nb, int blk, int S,
-                       float to_f, float soft, float inv_cellxmax, float g,
-                       int want_pot, int device, void* stream) {
+                       int kind, const void* cf, int ncf, const void* cp,
+                       int ncp, float ku, void* acc, void* pot, int nb,
+                       int blk, int S, float to_f, float soft,
+                       float inv_cellxmax, float g, int want_pot,
+                       int device, void* stream) {
   if (nb <= 0) return 0;
-  if (blk < 1 || blk > kMaxBlk || S < 0 || ncf < 1 || ncf > kMaxCoef ||
-      (want_pot && (ncp < 1 || ncp > kMaxCoef)))
+  const bool cheb = kind == kKindCheb;
+  if (blk < 1 || blk > kMaxBlk || S < 0 ||
+      (kind != kKindCheb && kind != kKindErfc) ||
+      (cheb && (ncf < 1 || ncf > kMaxCoef ||
+                (want_pot && (ncp < 1 || ncp > kMaxCoef)))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool tpl = instantiation(ncf, ncp, want_pot) != 0;
-  const auto kernel = want_pot ? (tpl ? p2p_kernel<true, kTplCoef>
-                                      : p2p_kernel<true, 0>)
-                               : (tpl ? p2p_kernel<false, kTplCoef>
-                                      : p2p_kernel<false, 0>);
+  const int inst = instantiation(kind, ncf, ncp, want_pot);
+  const auto kernel = want_pot ? kernel_for<true>(inst)
+                               : kernel_for<false>(inst);
   kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(tgt), static_cast<const uint32_t*>(src),
       static_cast<const float*>(smass), static_cast<const float*>(cf),
       static_cast<const float*>(cp), static_cast<float*>(acc),
       static_cast<float*>(pot), blk, S, ncf, ncp, to_f, soft, inv_cellxmax,
-      g);
+      ku, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The window degree + 1 compiled into the kernel that a launch with
-// these coefficient counts runs, or 0 for the run-time-degree kernel.
-int shenqi_p2p_instantiation(int ncf, int ncp, int want_pot) {
-  return instantiation(ncf, ncp, want_pot);
+// The instantiation a launch with this window runs: -1 for the erfc
+// window, else the Chebyshev degree + 1 compiled into the kernel, or 0
+// for the run-time-degree kernel.
+int shenqi_p2p_instantiation(int kind, int ncf, int ncp, int want_pot) {
+  return instantiation(kind, ncf, ncp, want_pot);
 }
 
 const char* shenqi_cuda_error_string(int code) {

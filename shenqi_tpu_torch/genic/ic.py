@@ -13,11 +13,13 @@ libgenic/zeldovich.cpp:293-315):
 with Delta = sqrt(P(k)) in internal units, g a unit complex Gaussian, and
 an unnormalized inverse FFT.  Velocity = a H(a) f(a) * disp (peculiar).
 
-Only the reference phases are ported: `scheme="fast"` draws from
-jax.random in the JAX package and cannot give the same realization
-(ROADMAP A.12).  Species lattices take a fractional shift, species
-displacements a transfer type, and with a CLASS transfer table loaded
-the velocities come from the scale-dependent growth (dlog_growth).
+`scheme="fast"` (no CLI selects it, in the JAX package either) is
+jax.random.normal white noise through an rfftn: utils/threefry.py draws
+jax's uniform to the bit and its normals within a few ulp, so the
+realization is the JAX package's to f32 rounding.  Species lattices take
+a fractional shift, species displacements a transfer type, and with a
+CLASS transfer table loaded the velocities come from the scale-dependent
+growth (dlog_growth).
 """
 
 from __future__ import annotations
@@ -55,22 +57,34 @@ def setup_grid(ngrid: int, boxsize: float, id_offset: int = 1,
 
 
 def gaussian_field(seed: int, nmesh: int, unitary: bool = False,
-                   invert_phase: bool = False,
-                   scheme: str = "gadget") -> np.ndarray:
+                   invert_phase: bool = False, scheme: str = "gadget",
+                   device=None) -> np.ndarray:
     """Unit-variance hermitian complex Gaussian modes g_k [n,n,n//2+1]
-    (host complex64) with the reference's pmic_fill_gaussian_gadget
-    phases: the same seed gives the same realization as MP-GenIC and
-    the JAX package, bit for bit.
+    (host complex64).  scheme='gadget': the reference's
+    pmic_fill_gaussian_gadget phases, so the same seed gives the same
+    realization as MP-GenIC and the JAX package, bit for bit.
+    scheme='fast': rfftn(white noise) / n^1.5 of jax.random.normal's
+    draw from PRNGKey(seed) (utils/threefry.normal), on `device` (CUDA
+    unless the caller asks for the CPU): exactly hermitian, each mode
+    <|g|^2> = 1, the JAX package's realization to f32 rounding.
 
     `unitary` fixes |g|=1 keeping the phase (variance suppression);
     `invert_phase` flips the sign (paired simulations).
     """
+    if scheme == "fast":
+        from ..utils import threefry
+        white = threefry.normal(threefry.PRNGKey(seed),
+                                (nmesh, nmesh, nmesh),
+                                device=resolve_device(device))
+        g = torch.fft.rfftn(white) / nmesh ** 1.5
+        if unitary:
+            amp = g.abs()
+            g = g / torch.where(amp > 0, amp, 1.0)
+        if invert_phase:
+            g = -g
+        return g.cpu().numpy().astype(np.complex64)
     if scheme != "gadget":
-        raise NotImplementedError(
-            f"gaussian_field scheme={scheme!r}: only 'gadget' is ported; "
-            "'fast' (jax.random.normal white noise in the JAX package, "
-            "whose threefry bits utils/threefry.py gives) is not "
-            "(ROADMAP A.12)")
+        raise ValueError(f"gaussian_field: unknown scheme {scheme!r}")
     from .gadget_field import gadget_gaussian_field
     return gadget_gaussian_field(seed, nmesh, unitary=unitary,
                                  invert_phase=invert_phase

@@ -5,7 +5,8 @@ walk).
 Physics identical to the reference short-range solver
 (libgadget/gravshort2.hpp:326-356): a spline-softened Newtonian kernel
 times the short-range window, which is the PM-calibrated Chebyshev fit
-(`PolyWindow`, window.window_polynomials) or the analytic erfc form.
+(`PolyWindow`, window.window_polynomials) or the analytic erfc form
+(`ErfcWindow`, ShortRangeForceWindowType erfc).
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ class PolyWindow(NamedTuple):
     xmax: float
     cf: torch.Tensor    # force-window coefficients
     cp: torch.Tensor    # potential-window coefficients
+
+
+class ErfcWindow(NamedTuple):
+    """The analytic erfc window (ShortRangeForceWindowType erfc; the JAX
+    package passes no tables for it): u = r / cellsize * 0.5 / asmth,
+    force window erfc(u) + 2u / sqrt(pi) exp(-u^2), potential window
+    erfc(u), both zero at r >= xmax cells (TABLE_RANGE_CELLS), no clip.
+    The pair kernel reads xmax as the Chebyshev window's fit range."""
+    asmth: float
+    xmax: float = TABLE_RANGE_CELLS
 
 
 class ShortRangeParams(NamedTuple):
@@ -57,27 +68,45 @@ def host_coeffs(c: torch.Tensor):
     return [float(x) for x in c.detach().cpu().numpy().astype(np.float32)]
 
 
+def poly_window(t, cf, cp=None):
+    """The calibrated window's Chebyshev fits at t = 2 r / (cellsize
+    xmax) - 1, clamped to [-1, 1]: (force window, potential window or
+    None), each clamped to [0, 1].  cf, cp: the coefficients as host
+    floats (host_coeffs)."""
+    t = torch.clamp(t, -1.0, 1.0)
+    fw = torch.clamp(clenshaw(t, cf), 0.0, 1.0)
+    pw = torch.clamp(clenshaw(t, cp), 0.0, 1.0) if cp is not None else None
+    return fw, pw
+
+
+def erfc_window(u, want_pot=True):
+    """The analytic window at u = r / cellsize * 0.5 / asmth: (erfc(u) +
+    2u/sqrt(pi) exp(-u^2), erfc(u) or None), in the JAX package's
+    operation order."""
+    e = torch.special.erfc(u)
+    fw = e + 2.0 * u / np.sqrt(np.pi) * torch.exp(-u * u)
+    return fw, (e if want_pot else None)
+
+
 def short_range_window(r, cellsize, asmth, tables=None):
     """(force_window, pot_window); zero beyond the table range.
 
     With a PolyWindow evaluates the Chebyshev fits of the PM-calibrated
-    window; with no tables the analytic erfc window.  (The JAX package's
+    window; with an ErfcWindow or no tables the analytic erfc window (an
+    ErfcWindow's asmth is the one `asmth` names).  (The JAX package's
     linear-table form has no caller in the port.)
     """
     if isinstance(tables, PolyWindow):
         xmax, cf, cp = tables
         x = r / cellsize
-        t = torch.clamp(2.0 * (x / xmax) - 1.0, -1.0, 1.0)
+        fw, pw = poly_window(2.0 * (x / xmax) - 1.0, host_coeffs(cf),
+                             host_coeffs(cp))
         inrange = x < xmax
-        fw = torch.clamp(clenshaw(t, host_coeffs(cf)), 0.0, 1.0)
-        pw = torch.clamp(clenshaw(t, host_coeffs(cp)), 0.0, 1.0)
         return torch.where(inrange, fw, 0.0), torch.where(inrange, pw, 0.0)
-    if tables is not None:
+    if tables is not None and not isinstance(tables, ErfcWindow):
         raise TypeError("the port evaluates the Chebyshev (PolyWindow) or "
-                        "the analytic erfc window")
-    u = r / cellsize * (0.5 / asmth)
-    fw = torch.special.erfc(u) + 2.0 * u / np.sqrt(np.pi) * torch.exp(-u * u)
-    pw = torch.special.erfc(u)
+                        "the analytic erfc (ErfcWindow) window")
+    fw, pw = erfc_window(r / cellsize * (0.5 / asmth))
     inrange = r < TABLE_RANGE_CELLS * cellsize
     return torch.where(inrange, fw, 0.0), torch.where(inrange, pw, 0.0)
 

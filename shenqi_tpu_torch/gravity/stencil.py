@@ -16,7 +16,10 @@
 
 Every pair is evaluated with the exact spline and window by the pair
 kernel (ops/p2p.py: CUDA on the card, its plain version on the CPU),
-as the JAX package's `engine="pallas"` path does.  The XLA engine's
+as the JAX package's `engine="pallas"` path does; with the erfc window
+(ErfcWindow) the JAX package takes its XLA pair pass with the same
+spline and window (stencil.py:296-310 of the JAX package), which the
+kernel's erfc instantiation evaluates.  The XLA engine's
 capped-Newton/near-cell split and its `mxu` variant are not ported:
 the kernel does without them (stencil.py:283-289 of the JAX package),
 so the near-cell classification and its caps are not built either.
@@ -40,7 +43,7 @@ import torch
 from ..core.particles import POS_SCALE, lshr, u32
 from ..ops.morton import _expand_bits10
 from ..ops.p2p import p2p_blocked, p2p_blocked_reference
-from .shortrange import ShortRangeParams, PolyWindow
+from .shortrange import ErfcWindow, ShortRangeParams, PolyWindow
 from .shortrange_refined import _next_pow2, _round_cap, tier_bounds
 
 
@@ -287,7 +290,7 @@ def _cover_units(ipos_s, qmeta, tgt_idx, tgt_valid, cover, params, k: int,
 
 
 def _stencil_eval(ipos_s, qtab, tgt_idx, tgt_valid, qst, qcn, sel,
-                  params: ShortRangeParams, window: PolyWindow, sub: int,
+                  params: ShortRangeParams, window, sub: int,
                   pcap: int, nsel: int, batch: int = 1024,
                   want_pot: bool = False, _plain: bool = False):
     """Packed dense evaluation of the selected stencil sub-blocks.
@@ -410,10 +413,11 @@ def _scatter_back(cnt, n, acc_bs, pot_bs, acc_u=None, pot_u=None):
 
 
 def _check_window(window):
-    if not isinstance(window, PolyWindow):
+    if not isinstance(window, (PolyWindow, ErfcWindow)):
         raise TypeError("stencil gravity needs the Chebyshev window "
-                        "(window.window_polynomials): the pair kernel "
-                        "evaluates no other form")
+                        "(window.window_polynomials) or the erfc window "
+                        "(ErfcWindow): the pair kernel evaluates no other "
+                        "form")
 
 
 def stencilgrav(ipos, mass, params: ShortRangeParams, window_tables,

@@ -11,7 +11,7 @@ from typing import NamedTuple
 import numpy as np
 
 from .pm import PMConfig
-from .shortrange import ShortRangeParams
+from .shortrange import ErfcWindow, ShortRangeParams
 
 
 class GravityConfig(NamedTuple):
@@ -26,8 +26,9 @@ class GravityConfig(NamedTuple):
     softening: float = 1.0     # spline softening h
     tree_nlevels: int = 8
     tree_ncrit: int = 32
-    # 'exact': PM-calibrated window (Chebyshev form); the erfc form is
-    # not evaluated by the pair kernel
+    # 'exact': PM-calibrated window (Chebyshev form); 'erfc': the
+    # analytic form (ShortRangeForceWindowType erfc); the pair kernel
+    # evaluates both
     window_type: str = "exact"
     # 'stencil' only: the tree engines of the JAX package are not ported
     engine: str = "stencil"
@@ -64,9 +65,13 @@ def default_softening(boxsize: float, npart_total: int,
 
 
 def get_window_tables(cfg: GravityConfig, device=None):
-    """Calibrate (or fetch cached) the short-range window on `device`,
-    in the Chebyshev form the pair kernel evaluates."""
+    """The short-range window the pair kernel evaluates: the calibrated
+    window (or its cached fit) on `device` in Chebyshev form, or for
+    window_type 'erfc' the analytic form, where the JAX package returns
+    None (its stencil then takes the XLA pair pass)."""
+    if cfg.window_type == "erfc":
+        return ErfcWindow(cfg.asmth)
     if cfg.window_type != "exact":
-        return None
+        raise ValueError(f"unknown window_type {cfg.window_type!r}")
     from .window import window_polynomials
     return window_polynomials(cfg.asmth, device=device)

@@ -10,21 +10,23 @@ Conversions happen at the I/O boundary exactly like the reference:
   * velocities: internal a^2 dx/dt -> peculiar (v = a dx/dt) when
     UsePeculiarVelocity, else stored raw (petaio.cpp:36-40,733-760)
 
-The header, the writer and the reader are host numpy, the same code as
-the JAX package's, so the files are byte-identical.  The JAX package's
-threaded C++ writer (io/native.py, native/bigfile_io.cpp) writes the
-same bytes faster; it waits for ROADMAP A.12, so every block goes
-through the numpy path here.
+The header and the reader are host numpy, the same code as the JAX
+package's, so the files are byte-identical.  Every non-empty block is
+written, as the JAX package writes it, by the threaded C++ writer
+(io/native.py, native/bigfile_io.cpp), which gives the numpy writer's
+bytes; empty blocks take the numpy writer.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from . import native
 from .bigfile import BigFile
 from ..core.particles import NTYPES, u32
 
@@ -161,8 +163,10 @@ _DTYPES = {
 
 def write_snapshot(path: str, header: SnapshotHeader,
                    blocks: Dict[int, Dict[str, np.ndarray]],
-                   nfile: int = 1):
-    """Write a snapshot.  blocks[ptype][name] = array (host numpy)."""
+                   nfile: int = 1, _numpy: bool = False):
+    """Write a snapshot.  blocks[ptype][name] = array (host numpy).
+    `_numpy` writes every block through the numpy writer: the tests'
+    oracle of the C++ writer's bytes."""
     bf = BigFile(path, create=True)
     header.write(bf)
     for ptype, props in blocks.items():
@@ -171,6 +175,10 @@ def write_snapshot(path: str, header: SnapshotHeader,
             dtype, nmemb = _DTYPES.get(
                 name, (data.dtype.str,
                        1 if data.ndim == 1 else data.shape[1]))
+            if len(data) and not _numpy:
+                native.write_block(os.path.join(path, f"{ptype}/{name}"),
+                                   dtype, data, nfile=nfile)
+                continue
             blk = bf.create_block(f"{ptype}/{name}", dtype, len(data),
                                   nmemb=nmemb, nfile=nfile)
             blk.write(0, data)

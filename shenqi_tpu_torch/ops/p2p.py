@@ -6,7 +6,12 @@ Both compute the function of the TPU kernel shenqi_tpu/ops/pallas_p2p.py
 `blk` targets against that block's S packed source lanes (zero mass
 marks padding), the minimum-image separation from the wrapped uint32
 difference, the cubic-spline softened force factor with one rsqrt, the
-Chebyshev short-range window by Clenshaw, and optionally the potential.
+short-range window, and optionally the potential.  The window is the
+Chebyshev fit of the calibrated window by Clenshaw (`PolyWindow`, the
+TPU kernel's) or the analytic erfc form (`ErfcWindow`,
+ShortRangeForceWindowType erfc, which the JAX package evaluates in its
+XLA pair pass instead: shenqi_tpu/gravity/stencil.py `pair_accum` with
+`_pair_fac_any`).
 
 `p2p_blocked` launches the kernel for CUDA tensors and takes the plain
 version only for tensors that lie on the CPU.  `p2p_blocked.launches`
@@ -22,15 +27,59 @@ import numpy as np
 import torch
 
 from ..core.particles import POS_SCALE, wrap_i32
-from ..gravity.shortrange import PolyWindow, clenshaw, host_coeffs
+from ..gravity.shortrange import (ErfcWindow, PolyWindow, erfc_window,
+                                  host_coeffs, poly_window)
 
 BLK = 128            # default targets per block
 SCH = 512            # source-lane granularity S must be a multiple of
 MAX_BLK = 256        # the kernel's largest target block
 MAX_COEF = 64        # the kernel's Chebyshev coefficient limit
 
+# The erfc window's instructions per pair beyond the separation, the
+# spline and the sums, opcode by opcode, in the SASS of nvcc 12.9 for
+# sm_90a (tools/torch_erfc_sass.py: a probe kernel per window output,
+# less an identity kernel; chip_smoke.py's build phase counts them again
+# and fails if they differ): u = x ku, erfcf(u), the Gaussian term and
+# its sum for the force.  The potential window is erfcf(u) again, which
+# the compiler shares, so it adds none.
+ERFC_FORCE_SASS = {
+    "FADD": 7, "FFMA": 23, "FFMA.RM": 1, "FFMA.SAT": 1, "FMUL": 11,
+    "FRND.TRUNC": 1, "FSEL": 1, "FSETP.GEU.AND": 1, "FSETP.GT.AND": 2,
+    "HFMA2.MMA": 2, "LOP3.LUT": 2, "MOV": 2, "MUFU.EX2": 2, "MUFU.RCP": 2,
+    "NOP": 3, "SHF.L.U32": 2, "ULDC": 1}
+ERFC_POT_SASS = {}
+# no operation: padding, register moves and constant loads (HFMA2.MMA
+# writes a constant into a register)
+SASS_MOVES = ("NOP", "MOV", "IMAD.MOV", "HFMA2.MMA", "ULDC", "LDC")
 
-def _scalars(boxsize, softening, cellsize, window: PolyWindow, G):
+
+def sass_work(opcodes):
+    """The opcodes of a SASS count that do work: all but SASS_MOVES."""
+    return {op: n for op, n in opcodes.items()
+            if not any(op == m or op.startswith(m + ".")
+                       for m in SASS_MOVES)}
+
+
+def sass_tally(opcodes):
+    """(operations with an FFMA counted 2, FFMAs, MUFU instructions) of
+    a SASS count.  Every instruction of sass_work counts: for the erfc
+    force window 25 FFMA (2 each), 4 MUFU (EX2 2, RCP 2), 23 other f32
+    instructions (FADD 7, FMUL 11, FSETP 3, FSEL 1, FRND 1) and 4
+    integer ones (LOP3 2, SHF 2: expf's exponent scaling), priced as f32
+    operations too: 81 operations."""
+    ops = sass_work(opcodes)
+    ffma = sum(n for op, n in ops.items() if op.split(".")[0] == "FFMA")
+    mufu = sum(n for op, n in ops.items() if op.split(".")[0] == "MUFU")
+    return sum(ops.values()) + ffma, ffma, mufu
+
+
+# (operations, FFMAs, MUFU) of the force window and of what the
+# potential window adds: (81, 25, 4) and (0, 0, 0)
+ERFC_FORCE = sass_tally(ERFC_FORCE_SASS)
+ERFC_POT = sass_tally(ERFC_POT_SASS)
+
+
+def _scalars(boxsize, softening, cellsize, window, G):
     """The kernel's f32 scalars, rounded as the JAX package rounds them:
     inv_cellxmax = 1 / (f32(cellsize) * f32(xmax)) in f32."""
     to_f = np.float32(boxsize / POS_SCALE)
@@ -59,6 +108,43 @@ def p2p_flops_per_pair(ncf: int, ncp: int = 0, want_pot: bool = False):
     return n
 
 
+def _erfc_ku(window: ErfcWindow):
+    """u = x * ku for x = r / (cell xmax): ku = xmax * 0.5 / asmth, f32."""
+    return np.float32(window.xmax * 0.5 / window.asmth)
+
+
+def p2p_erfc_flops_per_pair(want_pot: bool = False):
+    """f32 operations of one non-padding, non-softened pair inside the
+    window range with the erfc window, as csrc/p2p.cu evaluates it: the
+    Chebyshev tally's pair without its window (padding test 1,
+    separation 9, r^2 5, rsqrt 3, r and rinv^3 3, u 1, softening test 1,
+    Newtonian factor 1, x and its test 2, force factor 1, accumulation
+    6) and the erfc force window of ERFC_FORCE (SASS-counted, an FMA
+    counts 2); the potential adds ERFC_POT's window, factor 2 and
+    accumulation 2."""
+    n = 1 + 9 + 5 + 3 + 3 + 1 + 1 + 1 + 2 + 1 + 6 + ERFC_FORCE[0]
+    if want_pot:
+        n += ERFC_POT[0] + 2 + 2
+    return n
+
+
+def pair_counts(window, want_pot: bool):
+    """(f32 operations, FMAs among them, MUFU and convert instructions
+    among them) of one live pair inside the window range, for the
+    window's instantiation: the issue floor's tally (chip_smoke.py).
+    FMAs of the common part: r^2 2, accumulation 3 (the potential's 1);
+    of the Chebyshev window: t 1 and one per Clenshaw term.  The 3
+    converts and the rsqrt go to the MUFU pipe."""
+    if isinstance(window, ErfcWindow):
+        ops = p2p_erfc_flops_per_pair(want_pot)
+        fmas = 5 + ERFC_FORCE[1] + ((ERFC_POT[1] + 1) if want_pot else 0)
+        xu = 4 + ERFC_FORCE[2] + (ERFC_POT[2] if want_pot else 0)
+        return ops, fmas, xu
+    ncf, ncp = window.cf.shape[0], window.cp.shape[0]
+    ops = p2p_flops_per_pair(ncf, ncp, want_pot)
+    return ops, 6 + ncf + (ncp + 1 if want_pot else 0), 4
+
+
 def p2p_flops_outside_window() -> int:
     """f32 operations of one non-padding pair past the window range
     (x >= 1), where the window is 0 and the pair adds nothing, with or
@@ -67,8 +153,36 @@ def p2p_flops_outside_window() -> int:
     return 1 + 9 + 5 + 3 + 1 + 2
 
 
+def _window_fn(window, want_pot: bool):
+    """The window at x = r / (cell xmax), its argument formed as the
+    kernel forms it (u = x ku for erfc, t = 2x - 1 for the Chebyshev
+    fits), by gravity/shortrange's erfc_window or poly_window: x ->
+    (force window, potential window or None), zero for x >= 1."""
+    if isinstance(window, ErfcWindow):
+        ku = float(_erfc_ku(window))
+
+        def win(x):
+            return erfc_window(x * ku, want_pot)
+    elif isinstance(window, PolyWindow):
+        cf = host_coeffs(window.cf)
+        cp = host_coeffs(window.cp) if want_pot else None
+
+        def win(x):
+            return poly_window(2.0 * x - 1.0, cf, cp)
+    else:
+        raise TypeError(f"p2p_blocked: no pair kernel for the window "
+                        f"{type(window).__name__}")
+
+    def in_range(x):
+        inrange = x < 1.0
+        fw, pw = win(x)
+        return (torch.where(inrange, fw, 0.0),
+                torch.where(inrange, pw, 0.0) if want_pot else None)
+    return in_range
+
+
 def p2p_blocked_reference(tgt_ipos, src_ipos, src_mass, boxsize,
-                          softening, cellsize, window: PolyWindow, G,
+                          softening, cellsize, window, G,
                           want_pot: bool = True, sch: int = SCH,
                           blk: int = BLK):
     """Plain PyTorch version of the kernel, on any device.
@@ -84,8 +198,7 @@ def p2p_blocked_reference(tgt_ipos, src_ipos, src_mass, boxsize,
     assert S % sch == 0, (S, sch)
     to_f, soft, inv_cellxmax, g = (float(v) for v in _scalars(
         boxsize, softening, cellsize, window, G))
-    cf = host_coeffs(window.cf)
-    cp = host_coeffs(window.cp) if want_pot else None
+    win = _window_fn(window, want_pot)
     dev = src_mass.device
     acc = torch.zeros((nb, blk, 3), dtype=torch.float32, device=dev)
     pot = torch.zeros((nb, blk), dtype=torch.float32, device=dev)
@@ -118,11 +231,7 @@ def p2p_blocked_reference(tgt_ipos, src_ipos, src_mass, boxsize,
                 - 0.066666666667 * m * rinv3)
         fac = torch.where(insoft, torch.where(u < 0.5, fin, fout),
                           m * rinv3)
-        x = r * inv_cellxmax
-        tt = torch.clamp(2.0 * x - 1.0, -1.0, 1.0)
-        inrange = x < 1.0
-        fw = torch.where(inrange, torch.clamp(clenshaw(tt, cf), 0.0, 1.0),
-                         0.0)
+        fw, pw = win(r * inv_cellxmax)
         fall = fac * fw
         acc[rows] = torch.stack([(dx * fall).sum(-1), (dy * fall).sum(-1),
                                  (dz * fall).sum(-1)], dim=-1) * g
@@ -136,8 +245,6 @@ def p2p_blocked_reference(tgt_ipos, src_ipos, src_mass, boxsize,
                 m * hinv * torch.where(u < 0.5, wpi, wpo)
                 + torch.where(u < 0.5, 0.0, 0.066666666667 * m * rinv),
                 -m * rinv)
-            pw = torch.where(inrange,
-                             torch.clamp(clenshaw(tt, cp), 0.0, 1.0), 0.0)
             pot[rows] = (fpot * pw).sum(-1) * g
     return acc, (pot if want_pot else None)
 
@@ -149,21 +256,37 @@ def _lib():
     lib = load_library("p2p")
     f = lib.shenqi_p2p_blocked
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    f.argtypes = [P, P, P, P, I, P, I, P, P, I, I, I, F, F, F, F, I, I, P]
+    f.argtypes = [P, P, P, I, P, I, P, I, F, P, P, I, I, I, F, F, F, F, I,
+                  I, P]
     f.restype = I
-    lib.shenqi_p2p_instantiation.argtypes = [I, I, I]
+    lib.shenqi_p2p_instantiation.argtypes = [I, I, I, I]
     lib.shenqi_p2p_instantiation.restype = I
     lib.shenqi_cuda_error_string.argtypes = [I]
     lib.shenqi_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_instantiation(window: PolyWindow, want_pot: bool) -> str:
-    """Which instantiation of csrc/p2p.cu serves this window: the one
-    with the degree compiled in (coefficients in registers), or the
-    run-time-degree one.  Builds the library; needs the CUDA toolkit."""
-    nc = _lib().shenqi_p2p_instantiation(window.cf.shape[0],
-                                         window.cp.shape[0], int(want_pot))
+def _kind(window) -> int:
+    """The C interface's window kind: 0 Chebyshev, 1 erfc."""
+    if isinstance(window, ErfcWindow):
+        return 1
+    if isinstance(window, PolyWindow):
+        return 0
+    raise TypeError(f"p2p_blocked: no pair kernel for the window "
+                    f"{type(window).__name__}")
+
+
+def kernel_instantiation(window, want_pot: bool) -> str:
+    """Which instantiation of csrc/p2p.cu serves this window: the erfc
+    one, the one with the Chebyshev degree compiled in (coefficients in
+    registers), or the run-time-degree one.  Builds the library; needs
+    the CUDA toolkit."""
+    kind = _kind(window)
+    nc = _lib().shenqi_p2p_instantiation(
+        kind, 0 if kind else window.cf.shape[0],
+        0 if kind else window.cp.shape[0], int(want_pot))
+    if nc < 0:
+        return "erfc window"
     return f"degree {nc - 1} compiled in" if nc else "run-time degree"
 
 
@@ -182,7 +305,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def p2p_blocked(tgt_ipos, src_ipos, src_mass, boxsize, softening,
-                cellsize, window: PolyWindow, G, want_pot: bool = True,
+                cellsize, window, G, want_pot: bool = True,
                 sch: int = SCH, blk: int = BLK):
     """Fused pair interaction over pre-packed per-block source tables
     (the signature of the JAX package's p2p_blocked, without
@@ -209,12 +332,18 @@ def p2p_blocked(tgt_ipos, src_ipos, src_mass, boxsize, softening,
     _check("tgt_ipos", tgt_ipos, torch.int32, (nb, blk, 3), dev)
     _check("src_ipos", src_ipos, torch.int32, (nb, S, 3), dev)
     _check("src_mass", src_mass, torch.float32, (nb, S), dev)
-    cf, cp = window.cf, window.cp
-    _check("window.cf", cf, torch.float32, (cf.shape[0],), dev)
-    _check("window.cp", cp, torch.float32, (cp.shape[0],), dev)
-    if not (1 <= cf.shape[0] <= MAX_COEF and 1 <= cp.shape[0] <= MAX_COEF):
-        raise ValueError("p2p_blocked: window degree above the kernel's "
-                         f"{MAX_COEF} coefficients")
+    kind = _kind(window)
+    if kind == 0:
+        cf, cp = window.cf, window.cp
+        _check("window.cf", cf, torch.float32, (cf.shape[0],), dev)
+        _check("window.cp", cp, torch.float32, (cp.shape[0],), dev)
+        if not (1 <= cf.shape[0] <= MAX_COEF
+                and 1 <= cp.shape[0] <= MAX_COEF):
+            raise ValueError("p2p_blocked: window degree above the "
+                             f"kernel's {MAX_COEF} coefficients")
+        coef = (cf.data_ptr(), cf.shape[0], cp.data_ptr(), cp.shape[0], 0.0)
+    else:
+        coef = (None, 0, None, 0, float(_erfc_ku(window)))
     acc = torch.empty((nb, blk, 3), dtype=torch.float32, device=dev)
     pot = torch.empty((nb, blk), dtype=torch.float32, device=dev) \
         if want_pot else None
@@ -226,8 +355,7 @@ def p2p_blocked(tgt_ipos, src_ipos, src_mass, boxsize, softening,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.shenqi_p2p_blocked(
         tgt_ipos.data_ptr(), src_ipos.data_ptr(), src_mass.data_ptr(),
-        cf.data_ptr(), cf.shape[0], cp.data_ptr(), cp.shape[0],
-        acc.data_ptr(), pot.data_ptr() if want_pot else None,
+        kind, *coef, acc.data_ptr(), pot.data_ptr() if want_pot else None,
         nb, blk, S, float(to_f), float(soft), float(inv_cellxmax),
         float(g), int(want_pot), dev.index if dev.index is not None
         else torch.cuda.current_device(), stream)

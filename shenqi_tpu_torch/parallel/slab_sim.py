@@ -400,8 +400,7 @@ class SlabSimulation(Simulation):
                 torch.from_numpy(f_tab.astype(np.float32)).to(self.device))
 
     def _slab_stencil(self, mass, sp, kind: str):
-        if self.window_tables is None and \
-                self.gravity.window_type == "exact":
+        if self.window_tables is None:
             self.window_tables = get_window_tables(self.gravity,
                                                    device=self.device)
         t0 = time.perf_counter()

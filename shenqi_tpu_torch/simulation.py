@@ -21,9 +21,10 @@ The port runs the stencil engine, both timestep schemes
 massive-neutrino linear response (`nu_table`), the random box offset,
 the human control interface (HCI) and gas (`from_species` with a
 GasPhysics: simulation_gas.py), with cooling, star formation, winds and
-metal return as the source stages after the kick.  The tree engines
-raise NotImplementedError; GasPhysics refuses black holes and the
-reionization models (ROADMAP A.8).
+metal return as the source stages after the kick, black holes, and
+helium and excursion-set reionization.  The short-range force takes the
+calibrated (Chebyshev) or the analytic erfc window.  The tree engines
+raise NotImplementedError (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -374,8 +375,7 @@ class Simulation:
         rows of `active` (n_act of them) as the only targets when given.
         Steady state takes the fused path with cached caps and a device
         `ok` flag; on overflow the cap-regrowing slow path redoes it."""
-        if self.window_tables is None and \
-                self.gravity.window_type == "exact":
+        if self.window_tables is None:
             self.window_tables = get_window_tables(self.gravity,
                                                    device=self.device)
         kw = dict(sub=self.gravity.refine_sub, tier_cache=self._tier_cache,

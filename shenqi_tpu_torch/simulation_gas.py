@@ -135,8 +135,8 @@ def _metal_return_act(mask, ptype, birth, last, ag, tg, atime,
 @dataclass
 class GasState:
     """SoA gas fields for the [0, ngas) prefix rows (every field of the
-    JAX GasState; the subgrid ones stay at their initial values until
-    ROADMAP A.8 brings the stages that change them)."""
+    JAX GasState; the subgrid ones keep their initial values in a run
+    whose GasPhysics leaves the stage that changes them off)."""
 
     ngas: int
     entropy: torch.Tensor

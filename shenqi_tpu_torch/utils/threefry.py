@@ -10,7 +10,14 @@ same numbers from the same keys as the JAX package.
     the flat row-major index i and XORs the two words
     (`_threefry_random_bits_partitionable`);
   * `uniform(key, shape)` keeps the top 23 bits as an f32 mantissa in
-    [1, 2) and subtracts 1 (jax/_src/random.py `_uniform`).
+    [1, 2) and subtracts 1 (jax/_src/random.py `_uniform`);
+  * `normal(key, shape)` scales that uniform to [nextafter(-1, 0), 1)
+    as jax's `uniform(minval, maxval)` does and returns sqrt(2) erfinv
+    of it (`_normal_real`).  The uniform is jax's to the bit.  erfinv is
+    XLA's f32 form (`erfinv_xla`: Giles' polynomials), not
+    torch.special.erfinv, which is closer to the true erfinv but lies up
+    to ~80 ulp from XLA's in the tails; the two forms differ by FMA
+    contraction only (2 ulp at most on the CPU).
 
 The arithmetic is int64 with 32-bit masks: torch has no uint32 add,
 shift or compare (ROADMAP C.1).  Key chains run on the host; `bits` and
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -83,6 +91,48 @@ def uniform(key: tuple, shape, start: int = 0, device="cpu"):
     b = bits(key, tuple(shape), start, device)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+# XLA's f32 erf_inv (xla/hlo/builder/lib/math.cc ErfInv32; M. Giles,
+# "Approximating the erfinv function", 2012): a degree-8 polynomial in
+# w - 2.5 for w = -log1p(-x^2) < 5, else in sqrt(w) - 3
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_xla(x):
+    """erfinv of an f32 tensor as XLA evaluates lax.erf_inv: the
+    polynomials of _ERFINV_CENTRAL / _ERFINV_TAIL by Horner in f32,
+    times x; +-inf at +-1."""
+    w = -torch.log1p(-x * x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for c, t in zip(_ERFINV_CENTRAL, _ERFINV_TAIL):
+        c = torch.where(central, float(np.float32(c)), float(np.float32(t)))
+        p = c if p is None else c + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+# jax's normal draws its uniform over [nextafter(-1, 0), 1) in f32
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: tuple, shape, start: int = 0, device="cpu"):
+    """jax.random.normal(key, shape) in f32, or the block of a larger
+    draw's flat order starting at `start`: u = max(lo, uniform * (1 -
+    lo) + lo) with lo = nextafter(-1, 0), each step rounded to f32 as
+    jax rounds it, then sqrt(2) * erfinv(u) (jax/_src/random.py
+    `_normal_real`), erfinv as XLA evaluates it (`erfinv_xla`)."""
+    u = uniform(key, shape, start, device)
+    u = torch.clamp(u * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return _SQRT2_F32 * erfinv_xla(u)
 
 
 def mulmod32(a, b):

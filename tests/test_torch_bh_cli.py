@@ -30,6 +30,7 @@ from shenqi_tpu_torch.io.snapshot import read_snapshot
 from shenqi_tpu_torch.utils.stats import BH_DETAIL_DTYPE
 
 import test_torch_gas_cli as GC
+from torch_oracle import both_sides
 
 torch.set_num_threads(2)
 
@@ -50,17 +51,22 @@ def _bh_lines(path):
 
 @pytest.fixture(scope="module")
 def bh_runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("bhsmall")
+    """Both BH runs, computed once per session, each package in its own
+    process on its own copy of the IC (torch_oracle.both_sides)."""
+    out = both_sides(tmp_path_factory, "bh_small", _bh_run)
+    (tmp, ic, _), _ = out
+    return (tmp, ic, {name: r[2] for name, r in zip(("jax", "torch"), out)},
+            STARS_REHEARSAL + BH_SEEDING)
+
+
+def _bh_run(tmp, name):
     ic = GC._star_ic(tmp / "IC", ng=16, stars_in_clump=2)
-    out = {}
-    extra = STARS_REHEARSAL + BH_SEEDING
-    for name, mod in (("jax", jg), ("torch", tg)):
-        od = tmp / f"run_{name}"
-        pf = GC._star_params(tmp / f"{name}.gadget", ic, od, *BH_OUT,
-                             extra=extra, switches=BH_SWITCHES)
-        out[name] = ((jg.run_gadget(pf) if name == "jax"
+    od = tmp / f"run_{name}"
+    pf = GC._star_params(tmp / f"{name}.gadget", ic, od, *BH_OUT,
+                         extra=STARS_REHEARSAL + BH_SEEDING,
+                         switches=BH_SWITCHES)
+    return tmp, ic, ((jg.run_gadget(pf) if name == "jax"
                       else tg.run_gadget(pf, device="cpu")), od)
-    return tmp, ic, out, extra
 
 
 def test_bh_small_cli_parity(bh_runs):
@@ -103,11 +109,12 @@ def test_bh_small_cli_parity(bh_runs):
         np.testing.assert_array_equal(bt[0][k], bj[0][k])
 
 
-def test_bh_small_restart_restores_bhs(bh_runs, monkeypatch):
+def test_bh_small_restart_restores_bhs(bh_runs, monkeypatch, tmp_path):
     """RestartFlag 1 from the JAX run's last snapshot: the BH rows (type
     5, past the gas prefix) restored bit for bit in both packages, and
     both step on with their black holes."""
-    tmp, ic, out, extra = bh_runs
+    _, ic, out, extra = bh_runs
+    tmp = tmp_path
     _, oj = out["jax"]
     restored = {}
     for name, mod in (("jax", jg), ("torch", tg)):

@@ -215,10 +215,13 @@ def test_resume_and_hci_stop(ics, tmp_path):
 
 def test_unported_refused(ics, tmp_path):
     """What the port does not run yet is refused, naming its ROADMAP
-    item: --mesh (A.9), RestartFlag 99 (A.10) and the erfc short-range
-    window (A.12).  The paramfile (gas particles with HydroOn, and
-    HeliumReionizationOn, which now runs) leaves SplitGravityTimestepsOn
-    at its default."""
+    item: --mesh (A.9) and RestartFlag 99 (A.10).  The paramfile (gas
+    particles with HydroOn, and HeliumReionizationOn, which now runs)
+    leaves SplitGravityTimestepsOn at its default.  The erfc short-range
+    window, once refused (A.12), runs: three steps of the dark-matter
+    miniature with ShortRangeForceWindowType erfc in both packages, the
+    port's through the pair kernel's erfc window, positions within 2e-5
+    of the box."""
     od = tmp_path / "o"
     od.mkdir()
     n, box = 64, 64000.0
@@ -242,9 +245,24 @@ def test_unported_refused(ics, tmp_path):
         tg.run_gadget(str(pf), mesh_devices=8, device="cpu")
     with pytest.raises(NotImplementedError, match="RestartFlag 99.*A.10"):
         tg.run_gadget(str(pf), restart_flag=99, device="cpu")
-    pf.write_text(pf.read_text() + "ShortRangeForceWindowType = erfc\n")
-    with pytest.raises(NotImplementedError, match="erfc.*A.12"):
-        tg.run_gadget(str(pf), device="cpu")
+    from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
+    tmp, paths = ics
+    sims = {}
+    for name in ("jax", "torch"):
+        pf = _gadget_param(tmp, paths["jax"], str(tmp / f"erfc_{name}"),
+                           extra="ShortRangeForceWindowType = erfc\n")
+        sims[name] = (j_gadget(pf, max_steps=3) if name == "jax"
+                      else tg.run_gadget(pf, max_steps=3, device="cpu"))
+    sj, st = sims["jax"], sims["torch"]
+    assert sj.gravity.window_type == st.gravity.window_type == "erfc"
+    assert sj.window_tables is None
+    assert st.window_tables == ErfcWindow(st.gravity.asmth)
+    assert st.step_count == sj.step_count == 3
+    assert st.times.ti_current == sj.times.ti_current
+    alive = np.asarray(sj.particles.mask)
+    d = np.abs(np.asarray(sj.particles.ipos)[alive].astype(np.int64)
+               - st.particles.ipos_u32()[alive].astype(np.int64))
+    assert np.minimum(d, 2 ** 32 - d).max() < 2e-5 * 2 ** 32
 
 
 def _nu_params(tmp, ic, out):

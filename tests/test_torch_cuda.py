@@ -128,6 +128,21 @@ def test_p2p_kernel_window_degree(degree, compiled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blk", [1, 32, 128])
+@pytest.mark.parametrize("want_pot", [False, True])
+def test_p2p_kernel_erfc_window(blk, want_pot):
+    """The erfc window's instantiation (ShortRangeForceWindowType erfc)
+    against its plain version at 2e-4, the same bits twice, on sources
+    from inside the softening to past the window's 15 cells."""
+    from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
+    from shenqi_tpu_torch.ops.p2p import kernel_instantiation
+    dev = _card()
+    w = ErfcWindow(1.5)
+    assert kernel_instantiation(w, want_pot) == "erfc window"
+    _check(*_inputs(64, blk, 1024, 3 + blk), blk, want_pot, dev, w=w)
+
+
+@pytest.mark.cuda
 def test_fof_labels_on_card_equal_cpu():
     """FOF of a clustered 16^3 state with gas secondaries: the labels and
     the catalogue on the card are those of the port's CPU path, bit for

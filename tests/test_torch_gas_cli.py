@@ -56,6 +56,7 @@ from shenqi_tpu_torch.io.snapshot import (SnapshotHeader, read_snapshot,
                                           write_snapshot)
 from shenqi_tpu_torch.simulation_gas import GasPhysics
 from shenqi_tpu_torch.utils.units import default_units
+from torch_oracle import JAX_RETRIES, both_sides, shared
 
 torch.set_num_threads(2)
 BOX = 128.0
@@ -114,16 +115,31 @@ def _gadget(path, ic, out, outputs, a):
 
 
 @pytest.fixture(scope="module")
-def runs(tables):
-    tmp, pk, tk = tables
-    ic = _genic(tmp, pk, tk, 1)["jax"]
-    out = {}
-    for name in ("jax", "torch"):
-        od = tmp / f"run_{name}"
-        pf = _gadget(tmp / f"{name}.gadget", ic, od, "0.01,0.0105", 0.0105)
-        out[name] = ((jg.run_gadget(pf) if name == "jax"
-                      else tg.run_gadget(pf, device="cpu")), od)
-    return tmp, ic, out
+def runs(tmp_path_factory):
+    """Both gas runs from the JAX package's ICs, computed once per
+    session, each package in its own process (torch_oracle.both_sides),
+    in directories of their own."""
+    tmp, ic = shared(tmp_path_factory, "gas_cli_ic", _runs_ic,
+                     retries=JAX_RETRIES)
+    out = both_sides(tmp_path_factory, "gas_cli", _run_gas, ic)
+    return tmp, ic, dict(zip(("jax", "torch"), out))
+
+
+def _runs_ic(tmp):
+    pk, tk = tmp / "pk.txt", tmp / "tk.txt"
+    _eh_table(pk)
+    _class_tk_table(tk, _dm_small_cosmology(), 0.01)
+    gp = tmp / "jax1.genic"
+    gp.write_text(_GENIC_GAS.format(out=tmp / "jax1", ng=8, pk=pk, tk=tk,
+                                    dtf=1))
+    return tmp, j_genic(str(gp))
+
+
+def _run_gas(tmp, name, ic):
+    od = tmp / f"run_{name}"
+    pf = _gadget(tmp / f"{name}.gadget", ic, od, "0.01,0.0105", 0.0105)
+    return ((jg.run_gadget(pf) if name == "jax"
+             else tg.run_gadget(pf, device="cpu")), od)
 
 
 def test_gas_run_parity(runs):
@@ -175,11 +191,12 @@ def test_gas_blocks_from_one_state(runs):
         assert v.dtype == bj[0][k].dtype, k
 
 
-def test_restart_restores_gas_state(runs, monkeypatch):
+def test_restart_restores_gas_state(runs, monkeypatch, tmp_path):
     """RestartFlag 1 from the JAX run's last snapshot, in both packages
     (each in its own copy of the output): the restored state is the same,
     and one step on the runs agree."""
-    tmp, ic, out = runs
+    _, ic, out = runs
+    tmp = tmp_path
     _, oj = out["jax"]
     restored = {}
     for name, mod in (("jax", jg), ("torch", tg)):
@@ -212,10 +229,11 @@ def test_restart_restores_gas_state(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("switch", SUBGRID)
-def test_subgrid_switch_refused(runs, switch):
+def test_subgrid_switch_refused(runs, switch, tmp_path):
     """Each subgrid switch, once refused, now runs: two steps of the gas
     run with it on (GasPhysics takes helium and the excursion set)."""
-    tmp, ic, _ = runs
+    _, ic, _ = runs
+    tmp = tmp_path
     pf = tmp / f"refuse_{switch}.gadget"
     text = _GADGET_GAS.format(ic=ic, out=tmp / f"refused_{switch}",
                               outputs="0.0105", a=0.0105)
@@ -243,12 +261,13 @@ def test_subgrid_switch_refused(runs, switch):
 
 @pytest.mark.parametrize("line", ["MetalCoolFile = x.hdf5\nMetalCoolingOn = 1",
                                   "UVFluctuationFile = x.txt"])
-def test_subgrid_file_refused(runs, line):
+def test_subgrid_file_refused(runs, line, tmp_path):
     """The metal-line cooling and UV fluctuation tables, no longer
     refused: a gas run with CoolingOn and the table (written here, `x`
     standing for its path) runs two steps in both packages, to the same
     gas state within 1e-4 of its max."""
-    tmp, ic, _ = runs
+    _, ic, _ = runs
+    tmp = tmp_path
     name = line.split(" ")[0]
     table = (_zreion_table(tmp / "UVF", 128.0)
              if name == "UVFluctuationFile" else _metal_cool_table(tmp / "MC"))
@@ -348,16 +367,20 @@ def _sfr_lines(path):
 
 @pytest.fixture(scope="module")
 def star_runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("starsmall")
+    """Both star-small runs, computed once per session, each package in
+    its own process on its own copy of the IC."""
+    out = both_sides(tmp_path_factory, "star_small", _star_run)
+    (tmp, ic, _), _ = out
+    return tmp, ic, {name: r[2] for name, r in zip(("jax", "torch"), out)}
+
+
+def _star_run(tmp, name):
     ic = _star_ic(tmp / "IC")
-    out = {}
-    for name in ("jax", "torch"):
-        od = tmp / f"run_{name}"
-        pf = _star_params(tmp / f"{name}.gadget", ic, od, "0.1001,0.1002",
-                          0.1002)
-        out[name] = ((jg.run_gadget(pf) if name == "jax"
+    od = tmp / f"run_{name}"
+    pf = _star_params(tmp / f"{name}.gadget", ic, od, "0.1001,0.1002",
+                      0.1002)
+    return tmp, ic, ((jg.run_gadget(pf) if name == "jax"
                       else tg.run_gadget(pf, device="cpu")), od)
-    return tmp, ic, out
 
 
 def test_star_small_cli_parity(star_runs):
@@ -396,11 +419,13 @@ def test_star_small_cli_parity(star_runs):
         assert (ot / snap.replace("PART", "PIG")).is_dir()
 
 
-def test_star_small_restart_restores_stars(star_runs, monkeypatch):
+def test_star_small_restart_restores_stars(star_runs, monkeypatch,
+                                           tmp_path):
     """RestartFlag 1 from the JAX run's last snapshot in both packages:
     the restored gas and star state bit for bit the same, and both step
     on."""
-    tmp, ic, out = star_runs
+    _, ic, out = star_runs
+    tmp = tmp_path
     _, oj = out["jax"]
     restored = {}
     for name, mod in (("jax", jg), ("torch", tg)):

@@ -104,14 +104,27 @@ def test_mesh_runs_match_jax(ic):
             assert f.read().count("Step ") == sj.step_count
 
 
+def _erfc_hook(event, sim, outdir):
+    """Rank hook (module level: pickled to the ranks): the rank's live
+    IDs and positions and its window's type at the end of the run."""
+    if event == "end":
+        from shenqi_tpu_torch.parallel import collectives as cc
+        p = sim.particles
+        m = p.mask.numpy()
+        np.savez(os.path.join(outdir, f"erfc{cc.rank()}.npz"),
+                 id=p.ids64()[m], ipos=p.ipos_u32()[m],
+                 window=sim.gravity.window_type)
+
+
 def test_mesh_refusals(ic, tmp_path, monkeypatch):
     """What --mesh does not have yet is refused with its ROADMAP item, and
-    a rank count the run cannot take raises, before any rank starts."""
+    a rank count the run cannot take raises, before any rank starts; the
+    erfc window runs."""
     from shenqi_tpu_torch.parallel.slab_sim import SlabSimulation
     tmp, icpath = ic
     # the subgrid switches run on --mesh (A.9.3); reionization, lightcones
-    # and planes (A.9.4), the 2-D grid (A.9.5), the force tests (A.10)
-    # and the erfc window (A.12) are refused, with a subgrid switch too
+    # and planes (A.9.4), the 2-D grid (A.9.5) and the force tests (A.10)
+    # are refused, with a subgrid switch too
     cases = [
         ("HeliumReionizationOn = 1\n", 2, 2, "--mesh with Helium.*A.9.4"),
         ("QSOLightupOn = 1\n", 2, 2, "--mesh with QSOLightupOn.*A.9.4"),
@@ -121,12 +134,36 @@ def test_mesh_refusals(ic, tmp_path, monkeypatch):
         ("StarformationOn = 1\nExcursionSetReionOn = 1\n", 2, 2,
          "--mesh with ExcursionSetReionOn.*A.9.4"),
         ("CoolingOn = 1\n", "2x2", 2, "--mesh 2x2.*A.9.5"),
-        ("BlackHoleOn = 1\n", 2, 99, "RestartFlag 99.*A.10"),
-        ("ShortRangeForceWindowType = erfc\n", 2, 2, "erfc.*A.12")]
+        ("BlackHoleOn = 1\n", 2, 99, "RestartFlag 99.*A.10")]
     for extra, mesh, flag, match in cases:
         pf = _param(tmp_path, icpath, tmp_path / "out", extra)
         with pytest.raises(NotImplementedError, match=match):
             tg.run_gadget(pf, flag, mesh_devices=mesh, device="cpu")
+    # the erfc window, once refused (A.12), runs on --mesh: two steps on
+    # 2 gloo ranks equal to one rank's (the same steps, offsets and
+    # integer time, positions by ID within 2e-5 of the box)
+    got = {}
+    for ndev in (1, 2):
+        out = tmp_path / f"erfc{ndev}"
+        out.mkdir()
+        summ = tg.run_gadget(
+            _param(tmp_path, icpath, out,
+                   "ShortRangeForceWindowType = erfc\n"),
+            max_steps=2, mesh_devices=ndev, device="cpu",
+            rank_hook=_erfc_hook, mesh_timeout=60.0, join_timeout=300.0)
+        ranks = [dict(np.load(out / f"erfc{r}.npz")) for r in range(ndev)]
+        assert all(r["window"] == "erfc" for r in ranks)
+        ids = np.concatenate([r["id"] for r in ranks])
+        o = np.argsort(ids)
+        got[ndev] = (summ, ids[o],
+                     np.concatenate([r["ipos"] for r in ranks])[o])
+    (s1, i1, p1), (s2, i2, p2) = got[1], got[2]
+    assert s2["world"] == 2 and s1["step_count"] == s2["step_count"] == 2
+    assert s1["ti_current"] == s2["ti_current"]
+    np.testing.assert_array_equal(s2["offset_u32"], s1["offset_u32"])
+    np.testing.assert_array_equal(i2, i1)
+    d = np.abs(p2.astype(np.int64) - p1.astype(np.int64))
+    assert np.minimum(d, 2 ** 32 - d).max() < 2e-5 * 2 ** 32
     # gas rows with HydroOn and the subgrid switches run (A.9.2-A.9.3);
     # with the QSO lightup as well they are refused
     from shenqi_tpu_torch.io.snapshot import read_snapshot, write_snapshot

@@ -35,6 +35,7 @@ from chip_smoke import STARS_REHEARSAL
 from shenqi_tpu_torch.cli import gadget_main as tg
 from shenqi_tpu_torch.io.snapshot import read_snapshot
 from test_torch_slab_domain import SpawnCache
+from torch_oracle import JAX_RETRIES, shared
 
 OUT = ("0.1001,0.1002", 0.1002)
 SWITCHES = GC.STAR_SMALL + ("BlackHoleOn",)
@@ -71,14 +72,22 @@ def _resume_snapshot(ic, path):
     write_snapshot(str(path), hdr, b)
 
 
+def _jax_run(tmp):
+    """The JAX package's run_gadget(mesh_devices=1) on its own copy of
+    the IC (computed once per session: torch_oracle.shared)."""
+    from shenqi_tpu.cli.gadget_main import run_gadget as j_gadget
+    ic = GC._star_ic(tmp / "IC", ng=8, stars_in_clump=2)
+    od = tmp / "jax"
+    pf = GC._star_params(tmp / "jax.gadget", ic, od, *OUT, extra=EXTRA,
+                         switches=SWITCHES)
+    return j_gadget(pf, mesh_devices=1), od
+
+
 def _make(tmp, what):
     ic = _CACHE["ic"]
     if what == "jax":
-        from shenqi_tpu.cli.gadget_main import run_gadget as j_gadget
-        od = tmp / "jax"
-        pf = GC._star_params(tmp.parent / "jax.gadget", ic, od, *OUT,
-                             extra=EXTRA, switches=SWITCHES)
-        return j_gadget(pf, mesh_devices=1), od
+        return shared(_CACHE["factory"], "mesh_subgrid_jax", _jax_run,
+                      retries=JAX_RETRIES)
     if what == "resume":
         od = tmp / "resume"
         os.makedirs(od)
@@ -107,6 +116,7 @@ def runs(tmp_path_factory):
     global _RUNS
     tmp = tmp_path_factory.mktemp("mesh_subgrid")
     _CACHE["ic"] = GC._star_ic(tmp / "IC", ng=8, stars_in_clump=2)
+    _CACHE["factory"] = tmp_path_factory
     _RUNS = SpawnCache(tmp, _make)
     return _RUNS
 

@@ -1,9 +1,12 @@
 """The pair kernel's plain version against the JAX Pallas kernel (run in
 interpret mode on the CPU, as tests/test_pallas_p2p.py runs it) and
-against the f64 numpy oracle of tests/test_pallas_p2p.py."""
+against the f64 numpy oracle of tests/test_pallas_p2p.py; with the erfc
+window (which the JAX package evaluates in its XLA pair pass, not the
+Pallas kernel) against that pass, at tests/test_pallas_p2p.py's 2e-4."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -11,7 +14,9 @@ from shenqi_tpu.gravity.window import window_polynomials as j_window
 from shenqi_tpu.ops.pallas_p2p import p2p_blocked as j_p2p
 
 from shenqi_tpu_torch.convert import window_from_numpy
+from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
 from shenqi_tpu_torch.ops.p2p import (p2p_blocked, p2p_blocked_reference,
+                                      p2p_erfc_flops_per_pair,
                                       p2p_flops_outside_window,
                                       p2p_flops_per_pair)
 from tests.test_pallas_p2p import _reference
@@ -148,13 +153,16 @@ def test_cpu_wrapper_takes_plain_version_without_launching(windows):
     assert p2p_blocked.launches == before
     assert (p2p_flops_outside_window() < p2p_flops_per_pair(12)
             < p2p_flops_per_pair(12, 12, True))
+    assert (p2p_flops_outside_window() < p2p_erfc_flops_per_pair()
+            < p2p_erfc_flops_per_pair(True))
 
 
-@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("poly", [True, False, "erfc"])
 @pytest.mark.parametrize("want_pot", [True, False])
 def test_pair_factors_match(windows, poly, want_pot):
     """shortrange_refined._pair_fac_any (Chebyshev window: the one-rsqrt
-    form; erfc: spline_force + short_range_window) against the JAX
+    form; erfc, as no tables or as the ErfcWindow the port's stencil
+    carries: spline_force + short_range_window) against the JAX
     package's, on separations from inside the softening to past the
     window range.  f32 rounding: 1e-5 of the largest factor."""
     from shenqi_tpu.gravity.shortrange_refined import _pair_fac_any as jf
@@ -171,8 +179,9 @@ def test_pair_factors_match(windows, poly, want_pot):
     r2 = (r * r).astype(np.float32)
     m = rng.uniform(0.5, 2.0, r.shape).astype(np.float32)
     jff, jfp = jf(jnp.asarray(r2), jnp.asarray(m), JP(**kw),
-                  jw if poly else None, want_pot)
+                  jw if poly is True else None, want_pot)
     tff, tfp = tf(torch.from_numpy(r2), torch.from_numpy(m), TP(**kw),
+                  ErfcWindow(1.5) if poly == "erfc" else
                   tw if poly else None, want_pot)
     jff = np.asarray(jff)
     fin = np.isfinite(jff)
@@ -184,3 +193,54 @@ def test_pair_factors_match(windows, poly, want_pot):
         assert np.abs(tfp.numpy() - jfp).max() < 1e-5 * np.abs(jfp).max()
     else:
         assert tfp is None and jfp is None
+
+
+def _jax_erfc_pass(tgt, src, sm, want_pot):
+    """The JAX package's erfc pair pass, as its stencil's `pair_accum`
+    runs it with no window tables (shenqi_tpu/gravity/stencil.py:
+    296-310): the uint32 separations, `_pair_fac_any` and the sums,
+    times G."""
+    from shenqi_tpu.gravity.shortrange import ShortRangeParams as JP
+    from shenqi_tpu.gravity.shortrange_refined import _pair_fac_any
+    params = JP(boxsize=BOX, cellsize=CELL, rcut=6 * CELL, asmth=1.5,
+                softening=SOFT, G=G)
+    d = jnp.asarray(src)[:, None, :, :] - jnp.asarray(tgt)[:, :, None, :]
+    dx = jax.lax.bitcast_convert_type(d, jnp.int32).astype(
+        jnp.float32) * jnp.float32(BOX / 2 ** 32)
+    r2 = jnp.sum(dx * dx, axis=-1)
+    ff, fp = _pair_fac_any(r2, jnp.asarray(sm)[:, None, :], params, None,
+                           want_pot)
+    acc = np.asarray(jnp.sum(dx * ff[..., None], axis=2) * G)
+    return acc, (np.asarray(jnp.sum(fp, axis=2) * G) if want_pot else None)
+
+
+@pytest.mark.parametrize("case,blk,S", [
+    ("random", 32, 1024), ("prefix", 32, 1024), ("random", 1, 2048),
+    ("random", 128, 512)])
+@pytest.mark.parametrize("want_pot", [True, False])
+def test_erfc_reference_matches_jax_pair_pass(case, blk, S, want_pot):
+    """The erfc window's plain pair pass (what the CPU runs and the
+    kernel's erfc instantiation is held to on the card) against the JAX
+    package's erfc pair pass: 2e-4 of max |acc| and |pot|."""
+    tgt, src, sm = _inputs(3, blk, S, 20 + blk + want_pot)
+    sm = _padding(sm, case)
+    # sources at 1-16 cells of the first targets, across the window's
+    # 15-cell end
+    rng = np.random.RandomState(blk)
+    k = min(S, 64)
+    off = rng.normal(size=(3, k, 3))
+    off *= (rng.uniform(1.0, 16.0, (3, k, 1)) * CELL
+            / np.linalg.norm(off, axis=2, keepdims=True))
+    src[:, -k:] = (tgt[:, :1].astype(np.int64)
+                   + np.round(off * 2 ** 32 / BOX).astype(np.int64)
+                   ).astype(np.uint32)
+    sm[:, -k:] = 1.0
+    jacc, jpot = _jax_erfc_pass(tgt, src, sm, want_pot)
+    tacc, tpot = p2p_blocked(_t(tgt), _t(src), _t(sm), BOX, SOFT, CELL,
+                             ErfcWindow(1.5), G, want_pot=want_pot,
+                             sch=512 if S % 512 == 0 else 8, blk=blk)
+    assert np.abs(tacc.numpy() - jacc).max() < 2e-4 * np.abs(jacc).max()
+    if want_pot:
+        assert np.abs(tpot.numpy() - jpot).max() < 2e-4 * np.abs(jpot).max()
+    else:
+        assert tpot is None

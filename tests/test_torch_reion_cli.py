@@ -45,6 +45,7 @@ from shenqi_tpu_torch.cli import gadget_main as tg
 from shenqi_tpu_torch.io.snapshot import read_snapshot
 
 import test_torch_gas_cli as GC
+from torch_oracle import both_sides, shared
 
 torch.set_num_threads(2)
 
@@ -78,22 +79,30 @@ def _run(mod, pf, *a, **kw):
 
 @pytest.fixture(scope="module")
 def reion(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("reion")
+    """Both CLI runs, computed once per session, each package in its own
+    process (torch_oracle.both_sides), from one set of tables and IC."""
+    tmp, ic, extra = shared(tmp_path_factory, "reion_inputs", _inputs)
+    runs = both_sides(tmp_path_factory, "reion", _reion, ic, extra)
+    return tmp, ic, extra, dict(zip(("jax", "torch"), runs))
+
+
+def _inputs(tmp):
     heii, j21 = _reion_tables(tmp / "HeII", tmp / "J21", z=(10.0, 6.0))
     ic = GC._star_ic(tmp / "IC", ng=16, stars_in_clump=2)
-    extra = STARS_REHEARSAL + REION.format(heii=heii, j21=j21)
+    return tmp, ic, STARS_REHEARSAL + REION.format(heii=heii, j21=j21)
+
+
+def _reion(tmp, name, ic, extra):
+    mod = {"jax": jg, "torch": tg}[name]
     mp = pytest.MonkeyPatch()
     mp.setattr(jax.random, "randint", _uint32_randint(jax.random.randint))
-    out = {}
     try:
-        for name, mod in (("jax", jg), ("torch", tg)):
-            od = tmp / f"run_{name}"
-            pf = GC._star_params(tmp / f"{name}.gadget", ic, od, *OUT,
-                                 extra=extra, switches=SWITCHES)
-            out[name] = (_run(mod, pf), od)
+        od = tmp / f"run_{name}"
+        pf = GC._star_params(tmp / f"{name}.gadget", ic, od, *OUT,
+                             extra=extra, switches=SWITCHES)
+        return _run(mod, pf), od
     finally:
         mp.undo()
-    return tmp, ic, extra, out
 
 
 def _host(x):
@@ -199,30 +208,39 @@ def test_reion_cli_parity(reion, check):
 
 
 @pytest.fixture(scope="module")
-def resumed(reion):
-    tmp, ic, extra, out = reion
-    _, oj = out["jax"]
+def resumed(tmp_path_factory, reion):
+    """Both resumes from the JAX run's output, computed once per session,
+    each package in its own process."""
+    _, ic, extra, out = reion
+    res = both_sides(tmp_path_factory, "reion_resume", _resumed, ic, extra,
+                     out["jax"][1])
+    return ({name: r[0] for name, r in zip(("jax", "torch"), res)},
+            {name: r[1] for name, r in zip(("jax", "torch"), res)})
+
+
+def _resumed(out_dir, name, ic, extra, oj):
+    """(the state _restore_gas_state restored, the Simulation three steps
+    on) of one package's RestartFlag 1 resume."""
+    mod = {"jax": jg, "torch": tg}[name]
     mp = pytest.MonkeyPatch()
     mp.setattr(jax.random, "randint", _uint32_randint(jax.random.randint))
-    restored, sims = {}, {}
-    try:
-        for name, mod in (("jax", jg), ("torch", tg)):
-            real = mod._restore_gas_state
+    restored = {}
+    real = mod._restore_gas_state
 
-            def spy(sim, *a, _real=real, _name=name, **kw):
-                _real(sim, *a, **kw)
-                restored[_name] = {f: _host(getattr(sim.gas, f)) for f in (
-                    "entropy", "density", "birth_a", "heiii")}
-            mp.setattr(mod, "_restore_gas_state", spy)
-            od = tmp / f"resume_{name}"
-            shutil.copytree(oj, od)
-            pf = GC._star_params(tmp / f"r{name}.gadget", ic, od,
-                                 OUT[0] + ",0.1003", 0.1003, extra=extra,
-                                 switches=SWITCHES)
-            sims[name] = _run(mod, pf, 1, max_steps=3)
+    def spy(sim, *a, **kw):
+        real(sim, *a, **kw)
+        restored.update({f: _host(getattr(sim.gas, f)) for f in (
+            "entropy", "density", "birth_a", "heiii")})
+    mp.setattr(mod, "_restore_gas_state", spy)
+    try:
+        od = out_dir / f"resume_{name}"
+        shutil.copytree(oj, od)
+        pf = GC._star_params(out_dir / f"r{name}.gadget", ic, od,
+                             OUT[0] + ",0.1003", 0.1003, extra=extra,
+                             switches=SWITCHES)
+        return restored, _run(mod, pf, 1, max_steps=3)
     finally:
         mp.undo()
-    return restored, sims
 
 
 @pytest.mark.parametrize("field", ["entropy", "density", "birth_a",

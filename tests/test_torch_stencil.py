@@ -217,3 +217,30 @@ def test_fused_path_ok_flag_and_cache(windows, case700):
     _, _, ok2 = ts.stencilgrav_fused(_t(ipos), _t(mass), tp, tw,
                                      tier_cache=cache)
     assert not bool(ok2)
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_stencil_erfc_window_matches_jax(case700, active):
+    """ShortRangeForceWindowType erfc: the port's stencil with the erfc
+    window (the kernel's erfc instantiation; its plain version here)
+    against the JAX stencil with no window tables (its XLA pair pass), on
+    positions of which about half lie at or above 2^31, for all targets
+    and for an active subset: 2e-4 of max |acc| and |pot|
+    (tests/test_pallas_p2p.py's limit)."""
+    from shenqi_tpu_torch.gravity.shortrange import ErfcWindow
+    ipos, mass, params, _ = case700
+    assert (np.asarray(ipos) >= 2 ** 31).any(0).all()
+    kw_j, kw_t = dict(want_pot=True), dict(want_pot=True)
+    if active:
+        sel = np.random.RandomState(8).rand(mass.shape[0]) < 0.3
+        nact = int(sel.sum())
+        kw_j.update(active=jnp.asarray(sel), n_targets=nact)
+        kw_t.update(active=_t(sel), n_targets=nact)
+    jacc, jpot, _ = js.stencilgrav(ipos, mass, params, None, **kw_j)
+    tacc, tpot, _ = ts.stencilgrav(_t(ipos), _t(mass), _tparams(params),
+                                   ErfcWindow(params.asmth), **kw_t)
+    jacc, jpot = np.asarray(jacc), np.asarray(jpot)
+    assert np.abs(tacc.numpy() - jacc).max() < 2e-4 * np.abs(jacc).max()
+    assert np.abs(tpot.numpy() - jpot).max() < 2e-4 * np.abs(jpot).max()
+    if active:
+        assert not tacc.numpy()[~sel].any()

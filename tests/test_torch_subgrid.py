@@ -35,6 +35,7 @@ import torch
 import jax.numpy as jnp
 
 import test_torch_gas as G
+from torch_oracle import both_sides
 from shenqi_tpu.cosmology.background import Cosmology as JCosmology
 from shenqi_tpu.core.timeline import Timeline as JTimeline
 from shenqi_tpu.gravity.treepm import get_window_tables
@@ -147,26 +148,36 @@ def _star_rows(sim):
 
 
 @pytest.fixture(scope="module")
-def sub_steps():
-    js, ts = _pair()
-    js.gas = js.gas_physics.update_vdisp(js, js.gas)
-    ts.gas = ts.gas_physics.update_vdisp(ts, ts.gas)
-    vd = (np.asarray(js.gas.vdisp), ts.gas.vdisp.numpy().copy())
+def sub_steps(tmp_path_factory):
+    """Both packages' five steps, computed once per session, each package
+    in its own process (torch_oracle.both_sides), and handed to each
+    worker that asks."""
+    (js, jrec, jvd), (ts, trec, tvd) = both_sides(tmp_path_factory,
+                                                  "subgrid", _sub_steps)
+    rec = [{k: (j[k], t[k]) for k in j} for j, t in zip(jrec, trec)]
+    return js, ts, rec, (jvd, tvd)
+
+
+def _host(x):
+    return x.numpy().copy() if torch.is_tensor(x) else np.asarray(x).copy()
+
+
+def _sub_steps(out, side):
+    """One package's side of the pair from one seeded state (the two run
+    apart: nothing passes between them after _pair)."""
+    sim = dict(zip(("jax", "torch"), _pair()))[side]
+    sim.gas = sim.gas_physics.update_vdisp(sim, sim.gas)
+    vd = _host(sim.gas.vdisp)
     slow = np.full(NG ** 3, 10.0 * A_IC, np.float32)
-    js.gas.vdisp = jnp.asarray(slow)
-    ts.gas.vdisp = torch.from_numpy(slow)
+    sim.gas.vdisp = (jnp.asarray(slow) if side == "jax"
+                     else torch.from_numpy(slow))
     rec = []
     for _ in range(STEPS):
-        js.run(max_steps=1)
-        ts.run(max_steps=1)
-        jp, tp = js.particles, ts.particles
-        rec.append({
-            "a": (js.atime(), ts.atime()),
-            "stars": (_star_rows(js), _star_rows(ts)),
-            "bins": (np.asarray(jp.timebin).copy(), tp.timebin.numpy()),
-            "delay": (np.asarray(js.gas.delay_time).copy(),
-                      ts.gas.delay_time.numpy().copy())})
-    return js, ts, rec, vd
+        sim.run(max_steps=1)
+        rec.append({"a": sim.atime(), "stars": _star_rows(sim),
+                    "bins": _host(sim.particles.timebin),
+                    "delay": _host(sim.gas.delay_time)})
+    return sim, rec, vd
 
 
 def test_update_vdisp(sub_steps):

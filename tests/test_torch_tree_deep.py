@@ -28,6 +28,7 @@ from shenqi_tpu_torch.core.particles import float_to_ipos as t_ipos
 from shenqi_tpu_torch.ops import tree as ttree
 from shenqi_tpu_torch.physics import veldisp as tv
 from shenqi_tpu_torch.physics import blackhole as tbh
+from torch_oracle import JAX_RETRIES, shared
 
 torch.set_num_threads(2)
 BOX = 5000.0
@@ -47,18 +48,26 @@ def _clump(nstar=0, seed=0):
     return pos, vel, mass
 
 
-def _sigma_both(pos, vel, mass, alive, targets, r0, **kw):
+def _jax_sigma(out, pos, vel, mass, alive, targets, r0, kw):
     js = jv.dm_velocity_dispersion(
         jnp.asarray(j_ipos(pos, BOX)), jnp.asarray(vel), jnp.asarray(mass),
         jnp.asarray(alive), jnp.asarray(j_ipos(targets, BOX)), r0, BOX,
         0.5, **kw)
+    return [np.asarray(a, np.float64) for a in js]
+
+
+def _sigma_both(factory, name, pos, vel, mass, alive, targets, r0, **kw):
+    """The JAX package's sigma, radius and density in a spawned process
+    (torch_oracle.shared: its veldisp compile at these depths has
+    aborted a test worker), and the port's here."""
+    js = shared(factory, name, _jax_sigma, pos, vel, mass, alive, targets,
+                r0, kw, retries=JAX_RETRIES)
     ts = tv.dm_velocity_dispersion(
         t_ipos(pos, BOX, device="cpu"), torch.from_numpy(vel),
         torch.from_numpy(mass), torch.from_numpy(alive),
         t_ipos(targets, BOX, device="cpu"), torch.from_numpy(r0), BOX,
         0.5, **kw)
-    return [np.asarray(a, np.float64) for a in js], \
-        [b.numpy().astype(np.float64) for b in ts]
+    return js, [b.numpy().astype(np.float64) for b in ts]
 
 
 @pytest.mark.parametrize("nlevels", [11, 14, 17, 20])
@@ -96,7 +105,7 @@ def test_deep_octree_refuses_past_20():
                            nlevels=21)
 
 
-def test_veldisp_deep_clump(monkeypatch):
+def test_veldisp_deep_clump(monkeypatch, tmp_path_factory):
     """C.5's reproduction: the port raised TreeTooShallow at level 10."""
     pos, vel, mass = _clump()
     alive = np.ones(len(pos), bool)
@@ -110,8 +119,9 @@ def test_veldisp_deep_clump(monkeypatch):
         return build(*a, **kw)
 
     monkeypatch.setattr(tv, "build_octree", spy)
-    (js, jr, jrho), (ts, tr, trho) = _sigma_both(pos, vel, mass, alive,
-                                                 targets, r0)
+    (js, jr, jrho), (ts, tr, trho) = _sigma_both(
+        tmp_path_factory, "tree_deep_clump", pos, vel, mass, alive,
+        targets, r0)
     for a, b in ((js, ts), (jr, tr), (jrho, trho)):
         assert np.isfinite(b).all()
         np.testing.assert_allclose(b, a, rtol=RTOL)
@@ -120,7 +130,7 @@ def test_veldisp_deep_clump(monkeypatch):
     assert (ts > 10).all() and (ts < 30).all()
 
 
-def test_dynamical_friction_deep_clump():
+def test_dynamical_friction_deep_clump(tmp_path_factory):
     """The BH stage's call (simulation_gas.blackhole_step): the DM and
     star rows as sources, a BH at the clump as the target."""
     pos, vel, mass = _clump(nstar=24, seed=1)
@@ -129,7 +139,8 @@ def test_dynamical_friction_deep_clump():
     sep = BOX / len(pos) ** (1 / 3)
     r0 = np.full(1, np.float32(2 * sep), np.float32)
     (js, _, jrho), (ts, _, trho) = _sigma_both(
-        pos, vel, mass, alive, bh_pos, r0, nlevels=10, ncrit=32)
+        tmp_path_factory, "tree_deep_friction", pos, vel, mass, alive,
+        bh_pos, r0, nlevels=10, ncrit=32)
     np.testing.assert_allclose(ts, js, rtol=RTOL)
     np.testing.assert_allclose(trho, jrho, rtol=RTOL)
     bh_vel = np.array([[30.0, -20.0, 5.0]], np.float32)
